@@ -1,10 +1,9 @@
-"""North-star fidelity metric (BASELINE.md): time-to-X-dB PSNR on the
-Cornell box.  Renders a converged reference (many accumulated frames), then
+"""Fidelity metric: time-to-X-dB PSNR on the Cornell box.  Renders a converged reference (many accumulated frames), then
 replays the accumulation from scratch, timing each frame and recording PSNR
 of the running average against the reference.  Prints a JSON line with the
 PSNR curve and the interpolated wall-clock time to the target.
 
-Usage: python benchmarks/psnr_curve.py [--width 1920 --height 1080]
+Usage: python -m benchmarks.psnr_curve [--width 1920 --height 1080]
        [--ref-frames 2048] [--frames 512] [--target-db 35]
 """
 from __future__ import annotations
@@ -13,6 +12,7 @@ import argparse
 import json
 import time
 
+import jax
 import numpy as np
 
 
@@ -25,12 +25,17 @@ def main(argv=None):
     ap.add_argument("--target-db", type=float, default=35.0)
     args = ap.parse_args(argv)
 
+    from fyp_bidirectionalpathtracer_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
     from fyp_bidirectionalpathtracer_tpu.models.procedural import cornell_box
     from fyp_bidirectionalpathtracer_tpu.pipeline.renderer import Renderer
     from fyp_bidirectionalpathtracer_tpu.scene.scene import Scene
     from fyp_bidirectionalpathtracer_tpu.utils.config import (
         AccumulateConfig, RenderConfig,
     )
+
+    enable_compile_cache()
 
     cfg = RenderConfig(
         width=args.width, height=args.height,
@@ -56,9 +61,8 @@ def main(argv=None):
     for f in range(args.frames):
         t0 = time.perf_counter()
         run.render_frame()
-        # honest sync: scalar readback (block_until_ready is a no-op here)
         img = run.channels["Accumulated"]
-        float(img[0, 0, 0])
+        jax.block_until_ready(img)
         t_total += time.perf_counter() - t0
         cur = np.clip(np.asarray(img[..., :3]), 0.0, 1.0)
         mse = float(np.mean((cur - ref) ** 2))

@@ -1,12 +1,12 @@
-"""TPU-native bidirectional path tracer (BDPT) + BMFR denoiser framework.
+"""Bidirectional path tracer (BDPT) + BMFR denoiser framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 DirectX-Raytracing bidirectional path tracer (SunBangjie/FYP-BidirectionalPathTracer):
 ray-traced G-buffer, BDPT with three estimator families, temporal accumulation,
 and Blockwise Multi-Order Feature Regression denoising — built as a wavefront
 renderer over ray SoA buffers instead of a per-pixel DXR megakernel.
 
-Layer map (TPU-native analogue of the reference's Falcor stack):
+Layer map (analogue of the reference's Falcor stack):
   core/      — vec math, counter/LCG RNG, samplers        (BDPTUtils/BRDFUtils math)
   scene/     — cameras, lights, materials, .fscene loader (Falcor Graphics/Scene)
   models/    — mesh import + procedural scene builders    (Falcor Graphics/Model)
@@ -14,7 +14,7 @@ Layer map (TPU-native analogue of the reference's Falcor stack):
   ops/       — BRDF/material/shading/texture/tonemap jnp  (ShadingUtils + HLSL includes)
   passes/    — G-buffer, BDPT, accumulation, BMFR, extras (CommonPasses + BDPT app)
   pipeline/  — pass harness, channel registry, driver     (SharedUtils RenderingPipeline)
-  parallel/  — jax.sharding mesh helpers, tiled rendering (no reference equivalent: TPU-first)
+  parallel/  — jax.sharding mesh helpers, row-sharded rendering (no reference equivalent)
   utils/     — profiler, logging, config, image IO        (Falcor Utils)
 """
 

@@ -1,6 +1,6 @@
 """Host-side BVH builder -> flattened threaded node arrays.
 
-TPU-native replacement for the reference's DXR acceleration structures
+Replacement for the reference's DXR acceleration structures
 (RtModel::buildAccelerationStructure, RtModel.cpp:181-254, and
 RtScene::createTlas, RtScene.cpp:220-308).  The app loads scenes with
 RemoveInstancing (SceneLoaderWrapper.cpp:58), so a single flat BVH over the
@@ -13,9 +13,10 @@ with leaves additionally running their (<= leaf_size) triangle tests.  This
 maps a divergent recursive traversal onto a lockstep vector loop.
 
 Builder: binned split (largest-extent axis, 16 bins) with median fallback;
-pure numpy, iterative (no recursion limits).  An optional C++ builder
-(native/bvh_builder.cc via ctypes) produces the same arrays faster for large
-meshes.
+pure numpy, iterative (no recursion limits).  A C++ builder
+(native/bvh_builder.cc via ctypes, built at first use) produces the same
+arrays faster for large meshes (`native.available()` says whether it is
+the one in use).
 """
 from __future__ import annotations
 

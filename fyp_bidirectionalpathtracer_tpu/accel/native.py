@@ -1,34 +1,44 @@
-"""Optional C++ BVH builder binding (ctypes).
+"""C++ BVH builder binding (ctypes), built from source at first use.
 
 The reference's one irreducibly-native host component is the acceleration-
 structure build (RtModel.cpp:181-254).  native/bvh_builder.cc implements the
-same threaded-BVH flatten as accel.bvh in C++; this module loads it lazily
-and falls back to None (callers then use the numpy builder).
-
-Build:  cd native && make    (produces libbvh_builder.so next to this file's
-package root under native/).
+same threaded-BVH flatten as accel.bvh in C++.  The first call builds
+native/libbvh_builder.so with `make -C native` (a C++17 compiler is needed;
+the same command builds it ahead of time) and loads it; if no compiler or
+library is available, callers fall back to the numpy builder (None).
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import subprocess
 
 import numpy as np
+
+NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native",
+)
+LIB_PATH = os.path.join(NATIVE_DIR, "libbvh_builder.so")
 
 _LIB = None
 _TRIED = False
 
 
-def _find_lib():
-    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    cands = [
-        os.path.join(here, "native", "libbvh_builder.so"),
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "libbvh_builder.so"),
-    ]
-    for c in cands:
-        if os.path.exists(c):
-            return c
-    return None
+def _build() -> bool:
+    """`make -C native` under a file lock (parallel test workers share the
+    checkout); True if the library exists afterwards."""
+    if not os.path.exists(os.path.join(NATIVE_DIR, "bvh_builder.cc")):
+        return False
+    try:
+        with open(os.path.join(NATIVE_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(["make", "-s", "-C", NATIVE_DIR], check=True,
+                           capture_output=True, timeout=300)
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return os.path.exists(LIB_PATH)
 
 
 def _load():
@@ -36,11 +46,10 @@ def _load():
     if _TRIED:
         return _LIB
     _TRIED = True
-    path = _find_lib()
-    if path is None:
+    if not _build():
         return None
     try:
-        lib = ctypes.CDLL(path)
+        lib = ctypes.CDLL(LIB_PATH)
         lib.bvh_build.restype = ctypes.c_int64
         lib.bvh_build.argtypes = [
             ctypes.POINTER(ctypes.c_float),  # positions [V*3]
@@ -61,6 +70,12 @@ def _load():
     except OSError:
         _LIB = None
     return _LIB
+
+
+def available() -> bool:
+    """True if the C++ builder is loaded (building it first if needed), so
+    accel.bvh.build_bvh uses it instead of the numpy builder."""
+    return _load() is not None
 
 
 def build_sah_native(positions: np.ndarray, indices: np.ndarray, leaf_size: int):

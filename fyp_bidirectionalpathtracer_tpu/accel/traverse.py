@@ -5,9 +5,8 @@ against a DXR TLAS.  Here a whole wavefront of rays intersects the scene at
 once:
 
   * `intersect_brute` — dense all-triangles Möller-Trumbore, scanned over
-    triangle chunks.  Optimal for small scenes (Cornell box) where the dense
-    [rays x tris] compute is perfectly regular for the VPU and beats any
-    pointer chasing.
+    triangle chunks.  Meant for small scenes (Cornell box), where the dense
+    [rays x tris] compute is perfectly regular and needs no pointer chasing.
   * `intersect_bvh` — stackless lockstep traversal of the threaded BVH
     (accel.bvh): every ray keeps an int32 cursor and steps hit/miss links in
     a `lax.while_loop`; leaf triangle tests unroll over the static leaf size.
@@ -22,22 +21,15 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-from flax import struct
 
 from ..core.vecmath import cross, dot
 from ..scene.types import BVHArrays, GeometryArrays
+from ..utils import pytree
 
 _BIG = jnp.float32(1e30)
 
-# XLA's SPMD partitioner cannot split pallas_call custom-calls across a
-# device mesh; multi-chip rendering therefore traces with the jnp
-# intersectors (each shard's rows are an independent wavefront anyway).
-# parallel.sharding flips this off while building a sharded step.
-PALLAS_ENABLED = True
 
-
-@struct.dataclass
+@pytree.dataclass
 class TriSoA:
     """Pre-expanded triangle arrays for intersection (leaf-contiguous when
     built from a BVH's tri_order)."""
@@ -54,7 +46,7 @@ class TriSoA:
     material_id: jnp.ndarray  # [F] int32
 
 
-@struct.dataclass
+@pytree.dataclass
 class HitRecord:
     """Per-ray closest (or first) hit."""
 
@@ -132,8 +124,8 @@ def intersect_brute(
     """Dense intersection of [...]-shaped rays against all triangles.
 
     Scans triangle chunks with `lax.scan` to bound the [rays, chunk]
-    working set; for scenes up to a few thousand triangles this is the
-    fastest path on TPU (regular VPU compute, zero gathers).
+    working set: regular elementwise compute with zero gathers, which XLA
+    fuses into one loop body per chunk.
     """
     shape = origin.shape[:-1]
     o = origin.reshape(-1, 1, 3)
@@ -286,227 +278,14 @@ def intersect_bvh(
     )
 
 
-CLUSTER_THRESHOLD = 32768      # shaded cluster pack (192 B/tri) ~6 MB VMEM
-CLUSTER_OCC_THRESHOLD = 131072  # lean BW pack (64 B/tri) ~8 MB VMEM
-CLUSTER_HBM_THRESHOLD = 1 << 20  # HBM-paged tier; AABBs (32 B/cluster) in SMEM
-
-
-def make_intersector(bvh: BVHArrays, tris: TriSoA, brute_threshold: int = 2048,
-                     materials=None, cluster_threshold: int = CLUSTER_THRESHOLD,
-                     cluster_occ_threshold: int = CLUSTER_OCC_THRESHOLD,
-                     force_cluster: bool = False):
-    """Pick the intersection path once, at trace (host) time, by scene size.
-
-    Small scenes take the dense Pallas kernels on TPU — every triangle stays
-    in VMEM and the [rays x tris] tile never touches HBM; on other backends
-    the jnp brute force is used.  Medium scenes (brute_threshold,
-    cluster_threshold] take the two-level clustered kernels
-    (accel.pallas_cluster): per-cluster AABB culling in-kernel, dense pair
-    tests only for clusters any ray overlaps.  Up to cluster_occ_threshold
-    the lean [T,16] pack still fits VMEM: closest-hit uses the lean cluster
-    kernel (shading via XLA gathers outside).  Larger scenes fall back to
-    the threaded-BVH lockstep traversal (jnp).
-    """
-    from .pallas_intersect import intersect_pallas, pack_triangles
-    from .pallas_lane import occluded_lanes, pack_tris_lane
-
-    n_tris = int(np.asarray(tris.v0.shape[0]))
-    on_tpu = PALLAS_ENABLED and jax.default_backend() == "tpu"
-    use_brute = n_tris <= brute_threshold and not force_cluster
-    use_pallas = use_brute and on_tpu
-    use_cluster = (not use_brute) and n_tris <= CLUSTER_HBM_THRESHOLD and (
-        on_tpu or force_cluster
-    )
-    hbm_tier = n_tris > cluster_occ_threshold
-    interp = jax.default_backend() != "tpu"
-    tri_pack = pack_triangles(tris) if use_pallas else None
-    tri_pack_lane = pack_tris_lane(tris) if use_pallas else None
-
-    if use_cluster:
-        from . import pallas_cluster as pc
-        from ..ops.raysort import ray_sort_keys_dirq, scene_bounds
-
-        ck = pc.CK if hbm_tier else pc.pick_ck(n_tris)
-        aabbs = pc.pack_cluster_aabbs(tris, ck)
-        occ_pack = (
-            pc.pack_tris_cluster_hbm(tris, ck) if hbm_tier
-            else pc.pack_tris_cluster(tris, ck)
-        )
-        shaded_pack = (
-            pc.pack_shaded_tris_cluster(tris, materials, ck)
-            if materials is not None and n_tris <= cluster_threshold
-            else None
-        )
-        occluded_fn = (
-            pc.occluded_clusters_hbm if hbm_tier else pc.occluded_clusters
-        )
-        closest_lean_fn = (
-            pc.intersect_closest_clusters_hbm
-            if hbm_tier
-            else pc.intersect_closest_clusters
-        )
-
-        def sort_wavefront(origin, direction, t_min, t_max,
-                           const_origin=False):
-            """Direction-major sort of an incoherent wavefront
-            (ops.raysort.ray_sort_keys_dirq): returns (o, d, t_min, t_max,
-            idx) flat in sorted order, where idx is each sorted ray's
-            ORIGINAL index (unsort results by key-sorting on it).  One XLA
-            sort carrying the ray columns as payload — cheaper than
-            sort + inverse-scatter + permutation gather (a 12-payload sort
-            is ~13 ms/1M vs ~24 ms/1M per in-frame permutation gather,
-            benchmarks/vmem_gather_micro.py).  Direction-coherent cells are
-            what the cluster kernels' per-cell culling + front-to-back
-            visit order need (divergent any-hit 73 -> 56 ms/1M incl.
-            permutes, benchmarks/divergent_micro.py)."""
-            shape = origin.shape[:-1]
-            o = origin.reshape(-1, 3)
-            d = direction.reshape(-1, 3)
-            n = o.shape[0]
-            lo, hi = scene_bounds(tris)
-            keys = ray_sort_keys_dirq(o, d, lo, hi)
-            if t_max is not None and jnp.asarray(t_max).ndim != 0:
-                # empty-interval lanes (pre-masked shadow rays, passes/bdpt)
-                # sort to the TAIL: live rays pack densely into cells
-                # instead of diluting them, and all-dead trailing cells get
-                # empty shortlists (kernel programs skip outright)
-                dead = jnp.broadcast_to(
-                    jnp.asarray(t_max, jnp.float32), shape).reshape(-1) <= (
-                        jnp.broadcast_to(
-                            jnp.asarray(t_min, jnp.float32), shape
-                        ).reshape(-1))
-                keys = jnp.where(dead, jnp.int32(0x7FFFFFFF), keys)
-            iota = jnp.arange(n, dtype=jnp.int32)
-            # scalar t_min / absent t_max are CONSTANT columns — rebuild
-            # them after the sort instead of paying sort payload bandwidth
-            tn_scalar = jnp.asarray(t_min).ndim == 0
-            tm_scalar = t_max is None
-            # const_origin (all rays share one origin — reversed est-2
-            # shadow batches from the camera): rebuild the origin after the
-            # sort instead of carrying 3 payload columns
-            ocols = [] if const_origin else [o[:, 0], o[:, 1], o[:, 2]]
-            cols = [keys] + ocols + [d[:, 0], d[:, 1], d[:, 2]]
-            if not tn_scalar:
-                cols.append(jnp.broadcast_to(
-                    jnp.asarray(t_min, jnp.float32), shape).reshape(-1))
-            if not tm_scalar:
-                cols.append(jnp.broadcast_to(
-                    jnp.asarray(t_max, jnp.float32), shape).reshape(-1))
-            cols.append(iota)
-            srt = list(jax.lax.sort(cols, num_keys=1))
-            if const_origin:
-                srt = srt[:1] + [o[:, 0], o[:, 1], o[:, 2]] + srt[1:]
-            k = 7
-            if tn_scalar:
-                tn = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), (n,))
-            else:
-                tn = srt[k]
-                k += 1
-            if tm_scalar:
-                tm = jnp.full((n,), 1e30, jnp.float32)
-            else:
-                tm = srt[k]
-                k += 1
-            return (jnp.stack(srt[1:4], -1), jnp.stack(srt[4:7], -1),
-                    tn, tm, srt[k], shape)
-
-        def intersect(origin, direction, t_min, t_max=None, closest=True,
-                      cull_backface=False, coherent=True,
-                      const_origin=False):
-            # const_origin: caller promises every ray shares ONE origin
-            # value (reversed est-2 shadow batches from the camera) — the
-            # divergent-sort path then skips 3 sort payload columns.
-            if not closest:
-                if coherent:
-                    occ = occluded_fn(
-                        tris, origin, direction, t_min, t_max,
-                        tri_pack=occ_pack, aabbs=aabbs, ck=ck,
-                        interpret=interp,
-                    )
-                else:
-                    o, d, tn, tm, idx, shape = sort_wavefront(
-                        origin, direction, t_min, t_max,
-                        const_origin=const_origin,
-                    )
-                    import os as _os
-
-                    if _os.environ.get("FYP_STUB_ANYHIT_KERNEL"):
-                        # timing attribution only (breaks the image): keep
-                        # the sort + unsort glue, DCE the occlusion kernel
-                        occ_s = o[:, 0] < -jnp.float32(_BIG)
-                    else:
-                        occ_s = occluded_fn(
-                            tris, o, d, tn, tm,
-                            tri_pack=occ_pack, aabbs=aabbs, ck=ck,
-                            interpret=interp, directional=True,
-                        )
-                    # unsort by key-sorting on the original index
-                    occ = jax.lax.sort(
-                        [idx, occ_s.astype(jnp.int32)], num_keys=1
-                    )[1].astype(bool).reshape(shape)
-                zero = jnp.zeros(occ.shape, jnp.float32)
-                return HitRecord(
-                    t=jnp.where(occ, zero, _BIG),
-                    tri=jnp.where(occ, 0, -1),
-                    bary_u=zero,
-                    bary_v=zero,
-                )
-
-            def run_closest(o, d, tn, tm, directional=False):
-                if shaded_pack is not None:
-                    hit, _ = pc.intersect_shaded_clusters(
-                        tris, shaded_pack, aabbs, o, d, tn,
-                        tm, cull_backface, ck=ck, interpret=interp,
-                        directional=directional,
-                    )
-                    return hit
-                return closest_lean_fn(
-                    tris, o, d, tn, tm, cull_backface,
-                    tri_pack=occ_pack, aabbs=aabbs, ck=ck, interpret=interp,
-                    directional=directional,
-                )
-
-            if coherent:
-                return run_closest(origin, direction, t_min, t_max)
-            o, d, tn, tm, idx, shape = sort_wavefront(
-                origin, direction, t_min, t_max
-            )
-            hit_s = run_closest(o, d, tn, tm, directional=True)
-            out = jax.lax.sort(
-                [idx, hit_s.t, hit_s.tri.astype(jnp.float32),
-                 hit_s.bary_u, hit_s.bary_v],
-                num_keys=1,
-            )[1:]
-            return HitRecord(
-                t=out[0].reshape(shape),
-                tri=out[1].astype(jnp.int32).reshape(shape),
-                bary_u=out[2].reshape(shape),
-                bary_v=out[3].reshape(shape),
-            )
-
-        return intersect
+def make_intersector(bvh: BVHArrays, tris: TriSoA, brute_threshold: int = 2048):
+    """Pick the intersection path once, at trace (host) time, by scene size:
+    the dense `intersect_brute` up to `brute_threshold` triangles, the
+    threaded-BVH lockstep traversal above it."""
+    use_brute = int(tris.v0.shape[0]) <= brute_threshold
 
     def intersect(origin, direction, t_min, t_max=None, closest=True,
-                  cull_backface=False, coherent=True, const_origin=False):
-        del coherent, const_origin  # dense/jnp paths: ray order is moot
-        if use_pallas:
-            if not closest and not cull_backface:
-                # shadow rays: any-hit kernel, ray-in-lanes layout
-                occ = occluded_lanes(
-                    tris, origin, direction, t_min, t_max,
-                    tri_pack=tri_pack_lane, interpret=False,
-                )
-                zero = jnp.zeros(occ.shape, jnp.float32)
-                return HitRecord(
-                    t=jnp.where(occ, zero, _BIG),
-                    tri=jnp.where(occ, 0, -1),
-                    bary_u=zero,
-                    bary_v=zero,
-                )
-            return intersect_pallas(
-                tris, origin, direction, t_min, t_max, closest, cull_backface,
-                tri_pack=tri_pack, interpret=False,
-            )
+                  cull_backface=False):
         if use_brute:
             return intersect_brute(
                 tris, origin, direction, t_min, t_max, closest, cull_backface

@@ -94,8 +94,8 @@ def unit_sphere_sample(seed, max_iters: int = 24):
     masked lockstep loop: converged lanes stop consuming randoms, matching the
     per-lane sequence of an independent scalar loop.  The loop is STATICALLY
     UNROLLED (data-independent trip count) so XLA fuses it into one
-    elementwise kernel — a `while_loop` with an `all(done)` test serializes
-    into dozens of kernel launches + reductions on TPU.  P(lane not done
+    elementwise kernel — a `while_loop` with an `all(done)` test would run
+    as dozens of kernel launches + reductions.  P(lane not done
     after k draws) = (1 - pi/6)^k ~ 1.3e-7 at k=24.
     """
     shape = jnp.shape(seed)

@@ -1,9 +1,9 @@
-"""Vector math over [..., 3] arrays, written for TPU/XLA.
+"""Vector math over [..., 3] arrays, written for XLA.
 
 Vectors are stored AoS-style with a trailing component axis of size 3 (the
 batch axes carry the parallelism).  Dot products and friends unpack the
 component axis explicitly so XLA lowers them to fused elementwise ops rather
-than minor-axis reductions, which tile poorly on the VPU's (8, 128) registers.
+than minor-axis reductions over a size-3 axis.
 
 Reference parity: these are jnp equivalents of the HLSL intrinsics used across
 the reference shaders (dot/cross/normalize/length/saturate/lerp, plus the

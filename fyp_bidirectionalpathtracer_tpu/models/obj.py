@@ -18,12 +18,13 @@ from .procedural import MaterialDesc, MeshData
 
 
 def _load_image(path: str) -> np.ndarray | None:
-    try:
-        from PIL import Image
+    """Texture -> [h, w, 4] float32, or None if the file is missing or
+    unreadable (a missing Pillow for non-PNG textures is an error)."""
+    from ..utils.image import read_image_rgba
 
-        img = Image.open(path).convert("RGBA")
-        return np.asarray(img, np.float32) / 255.0
-    except Exception:
+    try:
+        return read_image_rgba(path)
+    except (OSError, ValueError):
         return None
 
 

@@ -47,14 +47,11 @@ def _load_texture(asset_dir, name, fallback):
     if asset_dir:
         path = os.path.join(asset_dir, name)
         if os.path.exists(path):
-            try:
-                from PIL import Image
+            from ..utils.image import read_image_rgba
 
-                img = np.asarray(
-                    Image.open(path).convert("RGBA"), np.float32
-                ) / 255.0
-                return img
-            except Exception:  # pragma: no cover - corrupt asset
+            try:
+                return read_image_rgba(path)
+            except (OSError, ValueError):  # pragma: no cover - corrupt asset
                 pass
     return fallback
 

@@ -2,7 +2,7 @@
 
 The reference ships binary FBX content (pink_room.fbx) we can't parse without
 Assimp, so benchmark/test scenes are built procedurally: the classic Cornell
-box (BASELINE config 1), textured boxes, spheres, and a many-light stress
+box, textured boxes, spheres, and a many-light stress
 scene.  Builders return MeshData lists + material dicts consumed by
 scene.scene.Scene.
 """

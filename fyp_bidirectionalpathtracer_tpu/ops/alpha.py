@@ -57,10 +57,8 @@ def _push_tmin(hit, t_min):
 
 
 _INERT = 1e30  # restart t_min for lanes that passed: the empty interval
-# [1e30, t_max) overlaps no cluster AABB, so the Pallas cluster tiers cull
-# the lane at the slab stage and a mostly-passed restart wavefront costs
-# ~the AABB tests alone (measured: pink_room closest 121 -> ~50 ms/1M with
-# 4 restarts; the result of an inert lane is discarded by the fail-select)
+# [1e30, t_max) hits nothing, so BVH lanes retire at the root slab test
+# (the result of an inert lane is discarded by the fail-select)
 
 
 def wrap_intersector(baked, intersect, max_restarts: int = 4):
@@ -75,21 +73,16 @@ def wrap_intersector(baked, intersect, max_restarts: int = 4):
     atlas = baked.data.textures
 
     def intersect_alpha(origin, direction, t_min, t_max=None, closest=True,
-                        cull_backface=False, coherent=True,
-                        const_origin=False):
-        del const_origin  # tmin becomes per-lane below; sort carries it
+                        cull_backface=False):
         tmin = jnp.broadcast_to(
             jnp.asarray(t_min, jnp.float32), origin.shape[:-1]
         )
-        hit = intersect(origin, direction, tmin, t_max, True, cull_backface,
-                        coherent=coherent)
+        hit = intersect(origin, direction, tmin, t_max, True, cull_backface)
         for _ in range(max_restarts):
             fail = _alpha_fails(tris, materials, atlas, hit, origin, direction)
             tmin = jnp.where(fail, _push_tmin(hit, tmin), _INERT)
-            hit2 = intersect(
-                origin, direction, tmin, t_max, True, cull_backface,
-                coherent=coherent,
-            )
+            hit2 = intersect(origin, direction, tmin, t_max, True,
+                             cull_backface)
             hit = jax.tree_util.tree_map(
                 lambda a, b: jnp.where(fail, a, b), hit2, hit
             )
@@ -114,20 +107,16 @@ def wrap_tracer(baked, trace, max_restarts: int = 4):
         return hit.hit & (base[..., 3] < materials.alpha_threshold[m])
 
     def trace_alpha(origin, direction, t_min, view_origin,
-                    cull_backface=False, coherent=True, lean=False):
-        del lean  # the restart test reads sd.uv/material_id: full decode
+                    cull_backface=False):
         tmin = jnp.broadcast_to(
             jnp.asarray(t_min, jnp.float32), origin.shape[:-1]
         )
-        hit, sd = trace(origin, direction, tmin, view_origin, cull_backface,
-                        coherent=coherent)
+        hit, sd = trace(origin, direction, tmin, view_origin, cull_backface)
         for _ in range(max_restarts):
             fail = fails(hit, sd)
             tmin = jnp.where(fail, _push_tmin(hit, tmin), _INERT)
-            hit2, sd2 = trace(
-                origin, direction, tmin, view_origin, cull_backface,
-                coherent=coherent,
-            )
+            hit2, sd2 = trace(origin, direction, tmin, view_origin,
+                              cull_backface)
 
             def sel(a, b):
                 f = fail

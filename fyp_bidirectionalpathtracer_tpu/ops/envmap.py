@@ -15,7 +15,7 @@ def eval_env_nearest(env_map, direction):
     """env_map [H,W,4], direction [...,3] -> [...,3] rgb.
 
     Constant probes (1x1, or the uniform 128^2 fallbacks) skip the per-pixel
-    gather entirely — a broadcast instead of a ~10 ms 1M-index gather.
+    gather entirely — a broadcast instead of a per-pixel gather.
     """
     h, w = env_map.shape[0], env_map.shape[1]
     if h == 1 and w == 1:

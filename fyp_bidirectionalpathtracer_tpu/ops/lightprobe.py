@@ -16,7 +16,7 @@ Defaults mirror LightProbe.h:48-51 (4096 diffuse / 1024 specular samples,
 128 px diffuse / 1024 px specular, DFG 128x128 at 128 samples,
 LightProbe.cpp:150).
 
-TPU-native design: the reference renders one full-screen pixel shader per
+Design: the reference renders one full-screen pixel shader per
 output texel with an in-shader sample loop.  Here every output texel is a
 lane of one [N]-wide batch and the Hammersley sample loop is a
 `lax.scan` whose carry is the running accumulation — each step is two

@@ -1,28 +1,8 @@
-"""Small-table row lookup tuned for TPU.
-
-A gather of 1M indices costs ~5-10 ms on v5e regardless of row width; for
-small tables a one-hot [N, M] @ [M, K] matmul on the MXU is ~2-4x cheaper.
-"""
+"""Small-table row lookup."""
 from __future__ import annotations
-
-import jax
-import jax.numpy as jnp
-
-ONE_HOT_MAX_ROWS = 64
 
 
 def table_lookup(table, idx):
-    """table [M, K] f32, idx [...] int -> [..., K]."""
-    m = table.shape[0]
-    if m <= ONE_HOT_MAX_ROWS:
-        shape = idx.shape
-        flat = idx.reshape(-1)
-        oh = (flat[:, None] == jnp.arange(m, dtype=idx.dtype)[None, :]).astype(
-            jnp.float32
-        )
-        out = jax.lax.dot_general(
-            oh, table, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        return out.reshape(shape + (table.shape[1],))
+    """table [M, K], idx [...] int -> [..., K]: a plain gather, exact in
+    every dtype (no matmul, so no reduced-precision path such as TF32)."""
     return table[idx]

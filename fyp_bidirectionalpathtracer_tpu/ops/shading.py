@@ -9,20 +9,19 @@ secondary-surface path (BDPTUtils.hlsli:40-41).
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..accel.traverse import HitRecord, TriSoA
 from ..core.vecmath import dot, normalize
 from ..scene.types import MaterialArray, SHADING_METAL_ROUGH, TextureAtlas
+from ..utils import pytree
 from .texture import sample_combined, sample_or_constant
 
 # Timing-attribution knob (breaks textured shading — NEVER for rendering):
 # replace every atlas tap with the material constants, isolating the
-# in-frame gather cost.  Read ONCE at import like the other experiment
-# knobs: _tap_kinds is traced under jit, so a mid-process env toggle could
-# not take effect anyway (the jit cache would keep the old value).
+# in-frame gather cost.  Read ONCE at import: _tap_kinds is traced under
+# jit, so a mid-process env toggle could not take effect anyway (the jit
+# cache would keep the old value).
 import os as _os
 
 _STUB_TAPS = bool(_os.environ.get("FYP_STUB_TAPS"))
@@ -39,9 +38,8 @@ def _tap_kinds(atlas, mat_id, bc_tex, sp_tex, em_tex, uv,
     """(base[...,4], spec[...,4], emissive[...,3]) with constant fallbacks.
 
     One combined-table gather when the atlas carries it (see
-    TextureAtlas.combined — HBM gathers cost ~23 ms/1M indices each on
-    v5e whatever the table looks like, so one tap beats three); otherwise
-    the per-kind packed/bilinear taps."""
+    TextureAtlas.combined: one tap instead of three); otherwise the
+    per-kind packed/bilinear taps."""
     if _STUB_TAPS:
         # timing attribution only (breaks textured shading): constants
         # stand in for every tap, isolating the in-frame atlas-gather cost
@@ -68,7 +66,7 @@ def _tap_kinds(atlas, mat_id, bc_tex, sp_tex, em_tex, uv,
     return base, spec, emissive
 
 
-@struct.dataclass
+@pytree.dataclass
 class ShadingData:
     """SoA shading data at hit points (Falcor ShadingData subset)."""
 
@@ -89,8 +87,8 @@ class ShadingData:
 
 def _tri_attr_pack(tris: TriSoA):
     """[T, 16] packed per-triangle attributes: n0 n1 n2 (9), uv0 uv1 uv2 (6),
-    mat_id (1).  One wide gather costs the same as a narrow one on TPU, so
-    all attribute fetches collapse into a single gather per intersection."""
+    mat_id (1), so all attribute fetches collapse into a single gather per
+    intersection."""
     return jnp.concatenate(
         [
             tris.n0, tris.n1, tris.n2,
@@ -115,80 +113,6 @@ def interpolate_hit(tris: TriSoA, hit: HitRecord, ray_origin, ray_dir):
     uv = w * a[..., 9:11] + u * a[..., 11:13] + v * a[..., 13:15]
     mat_id = a[..., 15].astype(jnp.int32)
     return pos, n, uv, mat_id
-
-
-def shading_from_fields(fields, atlas: TextureAtlas, hit: HitRecord,
-                        ray_origin, ray_dir, view_origin) -> ShadingData:
-    """ShadingData from the fused kernel's field table
-    (accel.pallas_shaded layout) — same decode as prepare_shading_data but
-    with zero HBM gathers (textures excepted)."""
-    return _decode_fields(
-        lambda lo, hi: fields[..., lo:hi] if hi > lo + 1 else fields[..., lo],
-        atlas, hit, ray_origin, ray_dir, view_origin)
-
-
-def shading_from_fields_fm(fields_fm, atlas: TextureAtlas, hit: HitRecord,
-                           ray_origin, ray_dir, view_origin) -> ShadingData:
-    """Field-major decode: `fields_fm` is [OUT_W, ...] straight from the
-    kernel's field-major output, skipping the [N, OUT_W] transpose the
-    row-major path pays (~15 ms per 1M rays on v5e).  Only the vector
-    channels actually consumed get re-laid out (moveaxis fuses into the
-    consumers); scalar channels are contiguous row slices."""
-    def pick(lo, hi):
-        if hi > lo + 1:
-            return jnp.moveaxis(fields_fm[lo:hi], 0, -1)
-        return fields_fm[lo]
-
-    return _decode_fields(pick, atlas, hit, ray_origin, ray_dir, view_origin)
-
-
-def _decode_fields(pick, atlas: TextureAtlas, hit: HitRecord,
-                   ray_origin, ray_dir, view_origin) -> ShadingData:
-    """Shared field-table decode; `pick(lo, hi)` returns columns [lo, hi)
-    with the field axis last (scalar for hi == lo+1)."""
-    pos = ray_origin + hit.t[..., None] * ray_dir
-    n = normalize(pick(4, 7))
-    uv = pick(7, 9)
-    base_const = pick(9, 13)
-    spec_const = pick(13, 17)
-    em_rgb = pick(17, 20)
-    ior = pick(20, 21)
-    metal_rough = pick(21, 22) == SHADING_METAL_ROUGH
-    double_sided = pick(22, 23) > 0.5
-    bc_tex = pick(23, 24).astype(jnp.int32)
-    sp_tex = pick(24, 25).astype(jnp.int32)
-    em_tex = pick(25, 26).astype(jnp.int32)
-    mat_id = pick(26, 27).astype(jnp.int32)
-
-    base, spec, emissive = _tap_kinds(
-        atlas, mat_id, bc_tex, sp_tex, em_tex, uv,
-        base_const, spec_const, em_rgb)
-    opacity = base_const[..., 3]
-
-    metal = spec[..., 2:3]
-    dif_mr = base[..., :3] * (1.0 - metal)
-    spec_mr = 0.04 * (1.0 - metal) + base[..., :3] * metal
-    lr_mr = spec[..., 1]
-    dif_sg = base[..., :3]
-    spec_sg = spec[..., :3]
-    lr_sg = 1.0 - spec[..., 3]
-    mr = metal_rough[..., None]
-    diffuse = jnp.where(mr, dif_mr, dif_sg)
-    specular = jnp.where(mr, spec_mr, spec_sg)
-    linear_rough = jnp.maximum(0.08, jnp.where(metal_rough, lr_mr, lr_sg))
-    rough = linear_rough * linear_rough
-
-    v = normalize(view_origin - pos)
-    n_dot_v = dot(n, v)
-    flip = (n_dot_v <= 0) & double_sided
-    n = jnp.where(flip[..., None], -n, n)
-    n_dot_v = jnp.where(flip, -n_dot_v, n_dot_v)
-
-    return ShadingData(
-        pos_w=pos, n=n, v=v, uv=uv, diffuse=diffuse, specular=specular,
-        linear_roughness=linear_rough, roughness=rough, emissive=emissive,
-        opacity=opacity, ior=ior, n_dot_v=n_dot_v, material_id=mat_id,
-    )
 
 
 def prepare_shading_data(
@@ -327,389 +251,24 @@ def apply_normal_mapping(baked, hit: HitRecord, sd: ShadingData) -> ShadingData:
     return sd.replace(n=n_out, n_dot_v=jnp.where(use, dot(n_out, sd.v), sd.n_dot_v))
 
 
-# Divergent (bounce) wavefronts up to this many triangles brute-force the
-# dense lane kernel instead of the cluster tier: divergent 1024-ray tiles
-# overlap nearly every cluster, so AABB culling pays slab+branch overhead
-# without skipping work (117 ms/1M at 10.5k tris vs the dense pair-test
-# bound; benchmarks/dense_pink_micro.py).  0 disables the route.
-DENSE_DIVERGENT_MAX = 0
-
-
-def make_shaded_tracer(baked, brute_threshold: int = 2048,
-                       force_fused: bool | None = None,
-                       sort_divergent: bool = False,
-                       force_cluster: bool = False,
-                       lean_bf16: bool | None = None,
-                       bounce_tex_mean: bool = False):
-    """Build a `trace(origin, dir, t_min, view_origin, cull_backface,
-    coherent) -> (HitRecord, ShadingData)` closure.
-
-    On TPU with an on-chip-sized scene it uses the fused Pallas
-    intersection+closest-hit kernel (accel.pallas_shaded) — zero attribute
-    gathers per bounce; otherwise it composes intersect +
-    prepare_shading_data.  `force_fused` overrides the backend check (used by
-    tests to run the fused path in interpreter mode on CPU).
-
-    `coherent=False` marks a divergent wavefront (BRDF-sampled bounce /
-    light-subpath extensions).  Routing for those, cluster tier only:
-    Morton-sort + cluster when `sort_divergent` (cfg.bdpt.sort_bounces),
-    dense lanes when the scene is under DENSE_DIVERGENT_MAX, else the plain
-    cluster kernels in ray order.
-
-    `lean_bf16` (None = on-TPU default) packs the lean path's back-sort
-    payload as bf16x2 pairs: 6 payload columns instead of 11 — roughly
-    half the unsort cost of every bounce trace.  Deviation: the bounce
-    shading inputs (normal, diffuse, specular, roughness) are quantized
-    to bf16 (<= 2^-8 relative; normals renormalized after unpack); hit t
-    and the ray geometry stay exact f32.
-    """
-    from ..accel.pallas_shaded import intersect_shaded, pack_shaded_triangles
-
-    from ..accel import traverse as traverse_mod
-
-    n_tris = int(baked.tris.v0.shape[0])
-    on_tpu = jax.default_backend() == "tpu"
-    if lean_bf16 is None:
-        lean_bf16 = on_tpu
-    atlas_full = baked.data.textures
-    # bounce_tex_mean: lean (secondary-bounce) decodes shade with the
-    # per-material MEAN texture colors baked into the material constants
-    # (scene.Scene.bake) — any_* = False statically removes every tap from
-    # the decode (ops.texture.sample_or_constant), saving the ~22 ms/1M
-    # combined-atlas gather per extension trace.  Primary/coherent traces
-    # keep the exact atlas.  See utils/config.BDPTConfig.bounce_tex_mean.
-    atlas_mean = (atlas_full.replace(
-        packed=None, combined=None, any_base=False, any_spec=False,
-        any_emissive=False) if bounce_tex_mean else atlas_full)
-    use_fused = (n_tris <= brute_threshold) if force_fused is None else force_fused
-    use_fused = use_fused and (on_tpu or force_fused) and (
-        traverse_mod.PALLAS_ENABLED or force_fused
-    )
-    use_cluster = force_cluster or (
-        not use_fused
-        and n_tris <= traverse_mod.CLUSTER_THRESHOLD
-        and on_tpu
-        and traverse_mod.PALLAS_ENABLED
-    )
-    if force_cluster:
-        use_fused = False
+def make_shaded_tracer(baked, brute_threshold: int = 2048):
+    """Build a `trace(origin, dir, t_min, view_origin, cull_backface) ->
+    (HitRecord, ShadingData)` closure: the scene intersector composed with
+    prepare_shading_data (plus the alpha-test restart loop on scenes with
+    alpha-testable materials)."""
     intersect = baked.intersector(brute_threshold)
 
-    def alpha_wrap(trace):
-        if getattr(baked, "has_alpha", False):
-            from .alpha import wrap_tracer
-
-            return wrap_tracer(baked, trace)
-        return trace
-
-    if use_cluster:
-        from ..accel.pallas_cluster import (
-            OUT_W,
-            intersect_shaded_clusters,
-            intersect_shaded_clusters_fm,
-            pack_cluster_aabbs,
-            pack_shaded_tris_cluster,
-            pick_ck,
-        )
-        from ..accel.traverse import HitRecord as _HitRecord
-        from .raysort import ray_sort_keys_dirq, scene_bounds
-
-        ck = pick_ck(n_tris)
-        interp = jax.default_backend() != "tpu"
-        pack = pack_shaded_tris_cluster(baked.tris, baked.data.materials, ck)
-        aabbs = pack_cluster_aabbs(baked.tris, ck)
-        import os as _os
-
-        proxy = None
-        if _os.environ.get("FYP_PROXY"):  # experiment: dense best_t seeding
-            from ..accel.pallas_cluster import pack_proxy_tris
-
-            proxy = pack_proxy_tris(baked.tris)
-
-        dense_divergent = n_tris <= DENSE_DIVERGENT_MAX
-        if dense_divergent:
-            from ..accel.pallas_lane import (
-                intersect_shaded_lanes_fm,
-                pack_shaded_tris_lane,
-            )
-
-            lane_pack = pack_shaded_tris_lane(baked.tris, baked.data.materials)
-
-        def trace(origin, direction, t_min, view_origin, cull_backface=False,
-                  coherent=True, lean=False):
-            # lean=True promises the caller only reads hit.hit/hit.t and the
-            # sample_brdf inputs (n, diffuse, specular, roughness) plus
-            # pos_w/v — shoot_ray's exact consumption.  The sorted path then
-            # carries 11 back-sort payload columns instead of 22 (ONE XLA
-            # sort instead of two, ~12 ms per 1M-ray bounce on v5e).
-            if not coherent and dense_divergent and not sort_divergent:
-                hit, fields_fm = intersect_shaded_lanes_fm(
-                    baked.tris, lane_pack, origin, direction, t_min,
-                    cull_backface=cull_backface, interpret=interp,
-                )
-                sd = shading_from_fields_fm(
-                    fields_fm, atlas_mean if lean else atlas_full, hit,
-                    origin, direction, view_origin
-                )
-                return hit, sd
-            if not coherent and sort_divergent:
-                # Direction-major sort (ops.raysort dirq keys) so cluster
-                # culling + front-to-back visit order see direction-coherent
-                # cells (bounce closest 117.9 -> ~88 ms/1M on pink_room,
-                # benchmarks/divergent_micro.py).  Both permutations ride
-                # XLA sorts CARRYING their payload columns instead of
-                # permutation gathers: an N-key sort with 12 payload columns
-                # is ~13 ms/1M on v5e (benchmarks/vmem_gather_micro.py)
-                # while each in-frame multi-column permutation gather is
-                # ~24 ms/1M.  Forward: key = dirq, payload = ray columns +
-                # the original index.  Backward: key = original index,
-                # payload = the decoded shading/hit columns.  pos/v/n_dot_v
-                # are recomputed from unsorted rays (exact: same formulas
-                # the decode used).
-                shape = origin.shape[:-1]
-                o = origin.reshape(-1, 3)
-                d = direction.reshape(-1, 3)
-                nflat = o.shape[0]
-                f32 = jnp.float32
-                same_vo = view_origin is origin
-                vo = None if same_vo else jnp.broadcast_to(
-                    view_origin, origin.shape
-                ).reshape(-1, 3)
-                lo, hi = scene_bounds(baked.tris)
-                keys = ray_sort_keys_dirq(o, d, lo, hi)
-                iota = jnp.arange(nflat, dtype=jnp.int32)
-                # scalar t_min is a CONSTANT column: rebuild after the sort
-                # instead of paying sort payload bandwidth for it
-                tn_scalar = jnp.asarray(t_min).ndim == 0
-                fwd_cols = [o[:, 0], o[:, 1], o[:, 2],
-                            d[:, 0], d[:, 1], d[:, 2]]
-                if not tn_scalar:
-                    fwd_cols.append(jnp.broadcast_to(
-                        jnp.asarray(t_min, f32), shape).reshape(-1))
-                fwd_cols.append(iota)
-                if vo is not None:
-                    fwd_cols += [vo[:, 0], vo[:, 1], vo[:, 2]]
-                srt = jax.lax.sort([keys] + fwd_cols, num_keys=1)
-                o_s = jnp.stack(srt[1:4], -1)
-                d_s = jnp.stack(srt[4:7], -1)
-                k = 7
-                if tn_scalar:
-                    tmin_s = jnp.broadcast_to(
-                        jnp.asarray(t_min, f32), (nflat,))
-                else:
-                    tmin_s = srt[k]
-                    k += 1
-                idx_s = srt[k]
-                k += 1
-                vo_s = o_s if same_vo else jnp.stack(srt[k:k + 3], -1)
-                import os
-
-                if os.environ.get("FYP_STUB_TRACE_KERNEL"):
-                    # timing attribution only (breaks the image): keep the
-                    # sorts + decode, DCE the cluster kernel, to split an
-                    # in-frame extension trace into kernel vs glue cost
-                    hit_s = _HitRecord(
-                        t=jnp.full((nflat,), 1.0, f32),
-                        tri=jnp.zeros((nflat,), jnp.int32),
-                        bary_u=jnp.zeros((nflat,), f32),
-                        bary_v=jnp.zeros((nflat,), f32),
-                    )
-                    ffm_s = o_s[:, 0:1].T * jnp.ones((OUT_W, 1), f32)
-                else:
-                    hit_s, ffm_s = intersect_shaded_clusters_fm(
-                        baked.tris, pack, aabbs, o_s, d_s, tmin_s,
-                        cull_backface=cull_backface, ck=ck,
-                        interpret=interp, directional=True,
-                        proxy_pack=proxy,
-                    )
-                sd_s = shading_from_fields_fm(
-                    ffm_s, atlas_mean if lean else atlas_full, hit_s, o_s,
-                    d_s, vo_s
-                )
-                if lean:
-                    if lean_bf16:
-                        from .splat_tile import _pack2bf16, _unpack2bf16
-
-                        back_cols = [
-                            _pack2bf16(sd_s.n[:, 0], sd_s.n[:, 1]),
-                            _pack2bf16(sd_s.n[:, 2], sd_s.linear_roughness),
-                            _pack2bf16(sd_s.diffuse[:, 0], sd_s.diffuse[:, 1]),
-                            _pack2bf16(sd_s.diffuse[:, 2],
-                                       sd_s.specular[:, 0]),
-                            _pack2bf16(sd_s.specular[:, 1],
-                                       sd_s.specular[:, 2]),
-                            hit_s.t,  # exact: next ray origin depends on it
-                        ]
-                        out = jax.lax.sort([idx_s] + back_cols, num_keys=1)[1:]
-                        t_ = out[5].reshape(shape)
-                        nx, ny = _unpack2bf16(out[0])
-                        nz, lr = _unpack2bf16(out[1])
-                        dr, dg = _unpack2bf16(out[2])
-                        db, sr = _unpack2bf16(out[3])
-                        sg, sb = _unpack2bf16(out[4])
-                        # eps guards miss lanes (n = 0; plain normalize
-                        # would inject NaN where the f32 path carried 0)
-                        n = normalize(
-                            jnp.stack([nx, ny, nz], -1).reshape(shape + (3,)),
-                            eps=1e-20)
-                        lr = lr.reshape(shape)
-                        diffuse = jnp.stack([dr, dg, db], -1).reshape(
-                            shape + (3,))
-                        specular = jnp.stack([sr, sg, sb], -1).reshape(
-                            shape + (3,))
-                    else:
-                        back_cols = [
-                            sd_s.n[:, 0], sd_s.n[:, 1], sd_s.n[:, 2],
-                            sd_s.diffuse[:, 0], sd_s.diffuse[:, 1],
-                            sd_s.diffuse[:, 2],
-                            sd_s.specular[:, 0], sd_s.specular[:, 1],
-                            sd_s.specular[:, 2],
-                            sd_s.linear_roughness,
-                            hit_s.t,  # already 1e30 (_BIG) on miss
-                        ]
-                        out = jax.lax.sort([idx_s] + back_cols, num_keys=1)[1:]
-                        t_ = out[10].reshape(shape)
-                        n = jnp.stack(out[0:3], -1).reshape(shape + (3,))
-                        lr = out[9].reshape(shape)
-                        diffuse = jnp.stack(out[3:6], -1).reshape(shape + (3,))
-                        specular = jnp.stack(out[6:9], -1).reshape(
-                            shape + (3,))
-                    hit_flag = t_ < 1e30
-                    hit = _HitRecord(
-                        t=t_,
-                        tri=jnp.where(hit_flag, 0, -1),
-                        bary_u=jnp.zeros(shape, jnp.float32),
-                        bary_v=jnp.zeros(shape, jnp.float32),
-                    )
-                    pos = origin + t_[..., None] * direction
-                    v = normalize(
-                        jnp.broadcast_to(view_origin, origin.shape) - pos
-                    )
-                    z = jnp.zeros(shape, jnp.float32)
-                    z3 = jnp.zeros(shape + (3,), jnp.float32)
-                    sd = ShadingData(
-                        pos_w=pos, n=n, v=v,
-                        uv=jnp.zeros(shape + (2,), jnp.float32),
-                        diffuse=diffuse,
-                        specular=specular,
-                        linear_roughness=lr, roughness=lr * lr,
-                        emissive=z3, opacity=z, ior=z,
-                        n_dot_v=dot(n, v),
-                        material_id=jnp.zeros(shape, jnp.int32),
-                    )
-                    return hit, sd
-                back_cols = [
-                    sd_s.n[:, 0], sd_s.n[:, 1], sd_s.n[:, 2],
-                    sd_s.diffuse[:, 0], sd_s.diffuse[:, 1], sd_s.diffuse[:, 2],
-                    sd_s.specular[:, 0], sd_s.specular[:, 1],
-                    sd_s.specular[:, 2],
-                    sd_s.linear_roughness,
-                    sd_s.emissive[:, 0], sd_s.emissive[:, 1],
-                    sd_s.emissive[:, 2],
-                    sd_s.opacity, sd_s.ior,
-                    sd_s.material_id.astype(f32),
-                    sd_s.uv[:, 0], sd_s.uv[:, 1],
-                    hit_s.t, hit_s.tri.astype(f32),
-                    hit_s.bary_u, hit_s.bary_v,
-                ]
-                # two sorts of <=11 payload columns: XLA sorts with >16
-                # payload operands hit a pathological remote-compile path
-                # (>20 min vs minutes; benchmarks/vmem_gather2_micro.py)
-                out = (
-                    jax.lax.sort([idx_s] + back_cols[:11], num_keys=1)[1:]
-                    + jax.lax.sort([idx_s] + back_cols[11:], num_keys=1)[1:]
-                )
-                t_ = out[18].reshape(shape)
-                hit = _HitRecord(
-                    t=t_, tri=out[19].astype(jnp.int32).reshape(shape),
-                    bary_u=out[20].reshape(shape),
-                    bary_v=out[21].reshape(shape),
-                )
-                n = jnp.stack(out[0:3], -1).reshape(shape + (3,))
-                lr = out[9].reshape(shape)
-                pos = origin + t_[..., None] * direction
-                v = normalize(
-                    jnp.broadcast_to(view_origin, origin.shape) - pos
-                )
-                sd = ShadingData(
-                    pos_w=pos, n=n, v=v,
-                    uv=jnp.stack(out[16:18], -1).reshape(shape + (2,)),
-                    diffuse=jnp.stack(out[3:6], -1).reshape(shape + (3,)),
-                    specular=jnp.stack(out[6:9], -1).reshape(shape + (3,)),
-                    linear_roughness=lr, roughness=lr * lr,
-                    emissive=jnp.stack(out[10:13], -1).reshape(shape + (3,)),
-                    opacity=out[13].reshape(shape),
-                    ior=out[14].reshape(shape),
-                    n_dot_v=dot(n, v),
-                    material_id=out[15].astype(jnp.int32).reshape(shape),
-                )
-                return hit, sd
-            hit, fields_fm = intersect_shaded_clusters_fm(
-                baked.tris, pack, aabbs, origin, direction, t_min,
-                cull_backface=cull_backface, ck=ck, interpret=interp,
-            )
-            sd = shading_from_fields_fm(
-                fields_fm, baked.data.textures, hit, origin, direction,
-                view_origin
-            )
-            return hit, sd
-
-        return alpha_wrap(trace)
-
-    if use_fused:
-        if on_tpu:
-            from ..accel.pallas_lane import (
-                intersect_shaded_lanes_fm,
-                pack_shaded_tris_lane,
-            )
-
-            pack = pack_shaded_tris_lane(baked.tris, baked.data.materials)
-
-            def trace(origin, direction, t_min, view_origin,
-                      cull_backface=False, coherent=True, lean=False):
-                del coherent  # dense kernels: ray order is moot
-                hit, fields_fm = intersect_shaded_lanes_fm(
-                    baked.tris, pack, origin, direction, t_min,
-                    cull_backface=cull_backface, interpret=False,
-                )
-                sd = shading_from_fields_fm(
-                    fields_fm, atlas_mean if lean else atlas_full, hit,
-                    origin, direction, view_origin
-                )
-                return hit, sd
-
-            return alpha_wrap(trace)
-
-        pack = pack_shaded_triangles(baked.tris, baked.data.materials)
-
-        def trace(origin, direction, t_min, view_origin,
-                  cull_backface=False, coherent=True, lean=False):
-            del coherent, lean  # dense kernels: ray order/output width moot
-            hit, fields = intersect_shaded(
-                baked.tris, pack, origin, direction, t_min,
-                cull_backface=cull_backface, interpret=not on_tpu,
-            )
-            sd = shading_from_fields(
-                fields, baked.data.textures, hit, origin, direction, view_origin
-            )
-            return hit, sd
-
-        return alpha_wrap(trace)
-
-    def trace(origin, direction, t_min, view_origin, cull_backface=False,
-              coherent=True, lean=False):
-        del lean  # gather-decode path has no permutation to slim
-        # intersect's coherent=False means "Morton-sort the wavefront";
-        # only divergence-sorting configs opt in (sort_divergent).
-        hit = intersect(
-            origin, direction, t_min, closest=True,
-            cull_backface=cull_backface,
-            coherent=coherent if sort_divergent else True,
-        )
+    def trace(origin, direction, t_min, view_origin, cull_backface=False):
+        hit = intersect(origin, direction, t_min, closest=True,
+                        cull_backface=cull_backface)
         sd = prepare_shading_data(
             baked.tris, baked.data.materials, baked.data.textures,
             hit, origin, direction, view_origin,
         )
         return hit, sd
 
-    return alpha_wrap(trace)
+    if getattr(baked, "has_alpha", False):
+        from .alpha import wrap_tracer
+
+        return wrap_tracer(baked, trace)
+    return trace

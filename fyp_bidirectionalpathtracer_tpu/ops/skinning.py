@@ -1,12 +1,12 @@
-"""Linear-blend skinning (SkinningCache rebuild, TPU-native).
+"""Linear-blend skinning (SkinningCache rebuild).
 
 The reference skins meshes on the GPU through Falcor's SkinningCache +
 AnimationController (Graphics/Model/SkinningCache.cpp, Animation*.cpp):
 per-vertex bone ids/weights and a per-frame bone-matrix palette produce
-skinned positions/normals before BLAS refit.  Here the palette blend is a
-single one-hot matmul per influence — [V, B] @ [B, 12] rides the MXU, no
-per-vertex gathers — and the skinned vertices feed the normal bake path
-(the BVH is rebuilt host-side per pose; DXR refit maps to re-bake).
+skinned positions/normals before BLAS refit.  Here each vertex gathers
+its K palette rows and blends them elementwise, and the skinned vertices
+feed the normal bake path (the BVH is rebuilt host-side per pose; DXR
+refit maps to re-bake).
 
 No FBX rig importer exists (the reference fetches its FBX via packman;
 models/obj.py has no rig data), so rigs are supplied programmatically.
@@ -29,18 +29,15 @@ def skin_vertices(positions, normals, bone_ids, bone_weights, palette):
     palette [B, 3, 4] rigid bone transforms (rest -> posed).
 
     Implementation: the K weighted influences collapse into a per-vertex
-    blended matrix via one-hot MXU matmuls ([V, B] @ [B, 12]) — the
-    vector-machine shape of SkinningCache.slang's per-vertex loop.
+    blended matrix — a gather of each influence's palette row and an
+    elementwise weighted sum (SkinningCache.slang's per-vertex loop), exact
+    f32 with no matmul precision to choose.
     """
     v = positions.shape[0]
     b = palette.shape[0]
     flat = palette.reshape(b, 12)                       # [B, 12]
-    onehot = jax.nn.one_hot(bone_ids, b, dtype=positions.dtype)  # [V, K, B]
-    mixed = jnp.einsum(
-        "vkb,vk->vb", onehot, bone_weights,
-        precision=jax.lax.Precision.HIGHEST,
-    )                                                   # [V, B] blend weights
-    m = (mixed @ flat).reshape(v, 3, 4)                 # [V, 3, 4] blended
+    m = jnp.sum(bone_weights[..., None] * flat[bone_ids], axis=1)
+    m = m.reshape(v, 3, 4)                              # [V, 3, 4] blended
     rot = m[:, :, :3]
     pos = jnp.einsum(
         "vij,vj->vi", rot, positions, precision=jax.lax.Precision.HIGHEST

@@ -1,211 +1,24 @@
-"""Splat accumulation (scatter-add of non-negative rgba contributions).
+"""Splat accumulation: scatter-add of rgba contributions onto a flat image.
 
-TPU scatter-add costs ~9 ms per 1M updates per channel; the light-tracing
-estimator produces depth x H x W updates x 4 channels, which dominates its
-cost.  `scatter_add_rgba_sorted` reduces that by sorting updates by target
-pixel, segment-summing with cumulative sums (valid because contributions are
->= 0 so the running sums are monotone), and issuing one sorted scatter per
-channel with at most one update per distinct pixel.
-
-Both paths are exact up to f32 summation order.
+The light-tracing estimator (BDPTMain.rt.hlsl:199) writes arbitrary pixels.
+The reference does a racy non-atomic read-modify-write into gOutput; here
+every update lands through one f32 scatter-add per channel.  On the GPU XLA
+lowers each to atomic adds, so the per-pixel sums are exact up to f32
+summation order, which varies from run to run.
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 
-def scatter_add_rgba_direct(lin, rgb, alpha, n_targets: int):
-    """Baseline: 4 flat scatter-adds. lin [U] int32 (>= n_targets = dropped),
-    rgb [U,3], alpha [U]."""
-    chans = []
-    for k in range(3):
-        chans.append(
-            jnp.zeros(n_targets, jnp.float32).at[lin].add(rgb[:, k], mode="drop")
-        )
-    chans.append(jnp.zeros(n_targets, jnp.float32).at[lin].add(alpha, mode="drop"))
+def scatter_add_rgba(lin, rgb, alpha, n_targets: int):
+    """lin [U] int32 target pixel (< 0 or >= n_targets = dropped),
+    rgb [U,3], alpha [U] -> [n_targets, 4] per-pixel sums."""
+    lin = jnp.where(lin < 0, n_targets, lin)
+    chans = [
+        jnp.zeros(n_targets, jnp.float32).at[lin].add(rgb[:, k], mode="drop")
+        for k in range(3)
+    ]
+    chans.append(
+        jnp.zeros(n_targets, jnp.float32).at[lin].add(alpha, mode="drop"))
     return jnp.stack(chans, -1)
-
-
-def scatter_add_rgba_sorted(lin, rgb, alpha, n_targets: int):
-    """Sort + segment-sum + one sorted scatter per channel."""
-    keys = jnp.minimum(lin, n_targets)  # all dropped updates share one key
-    ls, r, g, b, a = jax.lax.sort(
-        [keys, rgb[:, 0], rgb[:, 1], rgb[:, 2], alpha], num_keys=1
-    )
-    is_last = jnp.concatenate([ls[1:] != ls[:-1], jnp.ones((1,), bool)])
-    is_first = jnp.concatenate([jnp.ones((1,), bool), ls[1:] != ls[:-1]])
-
-    def segment_totals(v):
-        cs = jnp.cumsum(v)
-        # prefix sum just before each segment start, propagated forward;
-        # cummax is valid because v >= 0 keeps cs non-decreasing
-        start_excl = jnp.where(is_first, cs - v, 0.0)
-        carried = jax.lax.cummax(start_excl)
-        return cs - carried  # segment-local running total (read at is_last)
-
-    tgt = jnp.where(is_last, ls, n_targets)  # OOB -> dropped
-    chans = []
-    for v in (r, g, b, a):
-        tot = segment_totals(v)
-        chans.append(
-            jnp.zeros(n_targets, jnp.float32)
-            .at[tgt]
-            .add(jnp.where(is_last, tot, 0.0), mode="drop",
-                 indices_are_sorted=True)
-        )
-    return jnp.stack(chans, -1)
-
-
-_PACKED_SCALE_BITS = 18  # fixed-point: 2^-18 quantum, 8192 max pixel total
-
-
-def scatter_add_rgba_packed(lin, rgb, alpha, n_targets: int,
-                            alpha_is_count: bool = False):
-    """Sort + int32 fixed-point prefix sums, then ONE int32 scatter-max
-    (segment-end position per pixel) + TWO wide gathers.
-
-    TPU scatter cost is per *update element* per operand; the direct path
-    pays 4 f32 scatters of U updates, this path pays one i32 scatter of U
-    plus two wide gathers of n_targets rows (gathers cost the same
-    regardless of row width).
-
-    Why int32: a global f32 prefix sum over millions of updates reaches
-    magnitudes where ulp is ~0.01-0.1, and a segment total formed as the
-    difference of two large prefix values loses that much absolutely per
-    pixel (measured 0.13 max error at 2.8M updates).  Quantizing each
-    value to 2^-18 and summing in int32 makes the difference EXACT under
-    wraparound arithmetic (valid while a single pixel's channel total
-    stays below 2^13 - far above radiance splats).  The only deviation
-    from the direct mode is the 2^-18 quantization.
-
-    Layout: pos = scatter-max of sort positions = each pixel's segment-end
-    row.  Gather 1 (at pos): [seg_start, cs_r, cs_g, cs_b(, cs_a)] - at
-    the segment end the inclusive prefix IS the end sum.  Gather 2 (at
-    seg_start): exclusive prefixes.  Totals = wrap-exact difference;
-    alpha(count) = pos - seg_start + 1.
-
-    alpha_is_count=True asserts every kept update has alpha==1 (true for
-    the estimator-2 splats); general alphas ride as a fourth quantized
-    channel.
-    """
-    n = lin.shape[0]
-    iota = jnp.arange(n, dtype=jnp.int32)
-    keys = jnp.minimum(lin, n_targets)  # all dropped updates share one key
-    if alpha_is_count:
-        ls, r, g, b = jax.lax.sort(
-            [keys, rgb[:, 0], rgb[:, 1], rgb[:, 2]], num_keys=1
-        )
-        chans = (r, g, b)
-    else:
-        ls, r, g, b, a = jax.lax.sort(
-            [keys, rgb[:, 0], rgb[:, 1], rgb[:, 2], alpha], num_keys=1
-        )
-        chans = (r, g, b, a)
-    is_first = jnp.concatenate([jnp.ones((1,), bool), ls[1:] != ls[:-1]])
-
-    scale = jnp.float32(1 << _PACKED_SCALE_BITS)
-    cs_incl, cs_excl = [], []
-    for v in chans:
-        vi = jnp.round(v * scale).astype(jnp.int32)
-        ci = jnp.cumsum(vi)          # int32; differences are wrap-exact
-        cs_incl.append(ci)
-        cs_excl.append(ci - vi)
-    seg_start = jax.lax.cummax(jnp.where(is_first, iota, 0))
-
-    # one shared table: [seg_start, inclusive prefixes..., exclusive
-    # prefixes...]; read at the segment END row (gather 1: start + end
-    # sums) and at the segment START row (gather 2: exclusive sums)
-    c = len(chans)
-    tab = jnp.stack([seg_start] + cs_incl + cs_excl, -1)  # [n, 1+2C] i32
-
-    pos = (
-        jnp.full((n_targets,), -1, jnp.int32)
-        .at[ls]
-        .max(iota, mode="drop", indices_are_sorted=True)
-    )
-    empty = pos < 0
-    pos_c = jnp.where(empty, 0, pos)
-    row_end = tab[pos_c]
-    start = row_end[:, 0]
-    row_start = tab[start]
-    tot_i = row_end[:, 1:1 + c] - row_start[:, 1 + c:]   # wrap-exact
-    tot = tot_i.astype(jnp.float32) / scale
-    if alpha_is_count:
-        count = (pos_c - start + 1).astype(jnp.float32)
-        tot = jnp.concatenate([tot, count[:, None]], -1)
-    return jnp.where(empty[:, None], 0.0, tot)
-
-
-def scatter_add_rgba_complex(lin, rgb, alpha, n_targets: int):
-    """Two complex64 scatter-adds: (r + i*g) and (b + i*alpha).
-
-    complex64 addition is componentwise, so each scatter accumulates two
-    channels exactly; if XLA's TPU scatter cost is per update row rather
-    than per float, this halves the splat cost with no sort."""
-    c1 = jax.lax.complex(rgb[:, 0], rgb[:, 1])
-    c2 = jax.lax.complex(rgb[:, 2], alpha)
-    i1 = jnp.zeros(n_targets, jnp.complex64).at[lin].add(c1, mode="drop")
-    i2 = jnp.zeros(n_targets, jnp.complex64).at[lin].add(c2, mode="drop")
-    return jnp.stack([i1.real, i1.imag, i2.real, i2.imag], -1)
-
-
-MODES = {
-    "direct": scatter_add_rgba_direct,
-    "sorted": scatter_add_rgba_sorted,
-    "packed": scatter_add_rgba_packed,
-    "complex": scatter_add_rgba_complex,
-}
-
-
-def scatter_add_rgba(mode: str, lin, rgb, alpha, n_targets: int,
-                     alpha_is_count: bool = False, segments: int = 1):
-    """Dispatch by mode; 'auto' on TPU = 'tiled_rgb8e' when alpha is a count
-    (the estimator-2 splat: ONE i32 sort payload, bf16-exact decode — full
-    pipeline 21.9 vs 27.0 ms/frame for plain 'tiled' on Cornell 720p d=3,
-    benchmarks/cornell_splat_micro.py) falling back to 'tiled_bf16w' for
-    general alphas; 'direct' elsewhere (keeps CPU golden images on the
-    reference-ordered summation).
-
-    PRECONDITION (rgb8e): the rgb channels must be NON-NEGATIVE — the
-    8-bit shared-exponent pack clips negatives to 0 (splat_tile
-    ._pack_rgb8e).  Every estimator-2 splat satisfies this (physical
-    BRDFs x clamp_vec's [0, upper] clamp + the NaN guard); callers with
-    possibly-signed rgb must pass alpha_is_count=False (-> tiled_bf16w,
-    sign-preserving) or an explicit mode."""
-    if mode == "auto":
-        if jax.default_backend() == "tpu":
-            mode = "tiled_rgb8e" if alpha_is_count else "tiled_bf16w"
-        else:
-            mode = "direct"
-    if mode == "skip":  # timing attribution only: DCEs the whole reduction
-        return jnp.zeros((n_targets, 4), jnp.float32) + rgb[0, 0] * 0.0
-    if mode in ("tiled", "tiled_bf16", "tiled_bf16w", "tiled_rgb8e",
-                "tiled_sortonly"):
-        from .splat_tile import scatter_add_rgba_tiled
-
-        pack = {"tiled_bf16": "bf16", "tiled_bf16w": "bf16",
-                "tiled_rgb8e": "rgb8e"}.get(mode, "f32")
-        return scatter_add_rgba_tiled(
-            lin, rgb, alpha, n_targets, alpha_is_count,
-            interpret=jax.default_backend() != "tpu",
-            pack=pack,
-            mxu_bf16=mode in ("tiled_bf16w", "tiled_rgb8e"),
-            sort_only=mode == "tiled_sortonly",
-            segments=segments,
-        )
-    if mode == "packed":
-        return scatter_add_rgba_packed(lin, rgb, alpha, n_targets,
-                                       alpha_is_count)
-    return MODES[mode](lin, rgb, alpha, n_targets)
-
-
-def scatter_add_rgba_prepacked(lin, packed, n_targets: int,
-                               interpret: bool = False):
-    """rgb8e splat whose payload was packed IN-KERNEL (pallas_frame
-    emits [pix, rgb8e] rows when splat_mode resolves to tiled_rgb8e) —
-    same reduction as mode='tiled_rgb8e', minus the XLA pack passes."""
-    from .splat_tile import scatter_add_rgba_tiled_prepacked
-
-    return scatter_add_rgba_tiled_prepacked(
-        lin, packed, n_targets, interpret=interpret)

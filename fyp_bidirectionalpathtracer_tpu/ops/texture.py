@@ -10,8 +10,8 @@ wrap sampler, SceneLoaderWrapper.cpp:65-68); slot < 0 falls back to the
 constant factor, matching Falcor's ChannelType dispatch.
 
 Fast path: `TextureAtlas.packed` stores each texel's wrap-wrapped 2x2
-neighborhood as one [.., 16] f32 row (64 B — the TPU gather sweet spot, see
-CLAUDE.md), so a bilinear tap is ONE gather instead of four.  Falls back to
+neighborhood as one [.., 16] f32 row (64 B), so a bilinear tap is ONE
+gather instead of four.  Falls back to
 the four-tap form when `packed` is absent (e.g. a freshly constructed
 minimal atlas).
 """
@@ -71,66 +71,6 @@ def sample_atlas_bilinear_packed(packed, slot, uv):
     return top * (1 - fy) + bot * fy
 
 
-def _uv_to_texels_fm(u, v, res):
-    """Field-major _uv_to_texels: u, v [N] -> (x0i, y0i, fx, fy) all [N]."""
-    u = u - jnp.floor(u)
-    v = v - jnp.floor(v)
-    x = u * res - 0.5
-    y = v * res - 0.5
-    x0 = jnp.floor(x)
-    y0 = jnp.floor(y)
-    fx = x - x0
-    fy = y - y0
-    x0i = jnp.mod(x0.astype(jnp.int32), res)
-    y0i = jnp.mod(y0.astype(jnp.int32), res)
-    return x0i, y0i, fx, fy
-
-
-def sample_bilinear_packed_fm(packed, slot, u, v):
-    """Field-major bilinear tap: slot/u/v [N] -> [4, N] rgba.
-
-    Same math as sample_atlas_bilinear_packed but (a) the gather uses a
-    FLAT row index into [T*R*R, 16] (the fast row-gather tier —
-    benchmarks/gather_shape_micro.py measured the 3-axis advanced-indexing
-    form ~20% slower) and (b) every lerp runs on [N] lane vectors instead
-    of [N, 4] arrays, whose 4-wide minor dim pads to 128 lanes (125/128
-    wasted work per op — benchmarks/replay_micro.py measured the row-major
-    replay's elementwise chain at 230 ms/frame standalone)."""
-    t, res = packed.shape[0], packed.shape[1]
-    s = jnp.clip(slot, 0, t - 1)
-    x0i, y0i, fx, fy = _uv_to_texels_fm(u, v, res)
-    row = packed.reshape(t * res * res, 16)[(s * res + y0i) * res + x0i]
-    row_t = row.T  # [16, N]
-    w00 = (1.0 - fx) * (1.0 - fy)
-    w10 = fx * (1.0 - fy)
-    w01 = (1.0 - fx) * fy
-    w11 = fx * fy
-    return (row_t[0:4] * w00 + row_t[4:8] * w10
-            + row_t[8:12] * w01 + row_t[12:16] * w11)
-
-
-def sample_or_constant_fm(atlas, slot, u, v, constant, static_used=True):
-    """Field-major sample_or_constant: slot/u/v [N], constant [C<=4, N]
-    (or broadcastable scalar); returns [4, N] (or the constant as-is when
-    the kind is statically unused)."""
-    if not static_used:
-        return constant
-    atlas_data = atlas.data
-    if atlas_data.shape[1] == 1 and atlas_data.shape[2] == 1:
-        if atlas_data.shape[0] == 1:
-            tex = atlas_data[0, 0, 0][:, None]
-        else:
-            tex = atlas_data[jnp.clip(slot, 0, atlas_data.shape[0] - 1),
-                             0, 0].T
-        return jnp.where(slot >= 0, tex, constant)
-    if atlas.packed is not None:
-        tex = sample_bilinear_packed_fm(atlas.packed, slot, u, v)
-    else:
-        tex = sample_atlas_bilinear(atlas_data, slot,
-                                    jnp.stack([u, v], -1)).T
-    return jnp.where(slot >= 0, tex, constant)
-
-
 def _u32_rgba(u):
     """Unpack a little-endian u32 into [...,4] f32 rgba in [0,1]."""
     return jnp.stack(
@@ -144,12 +84,8 @@ def sample_combined(atlas, mat_id, uv):
     material texel table (TextureAtlas.combined: [M*R*R, 12] u32 — the 2x2
     wrap neighborhoods of all three kinds, u8 per channel).
 
-    One 48 B-row gather replaces three 64 B-row gathers: on v5e a 1M-index
-    gather from any real multi-MB HBM table costs ~22-24 ms (per-index
-    latency; table size, row width <=64 B and index locality are all
-    irrelevant — benchmarks/shade_micro.py), so tap COUNT is the only
-    lever: base+spec+emissive collapse from ~66 ms to ~35 ms per bounce on
-    pink_room.  Callers still select the constant factors for slot<0
+    One 48 B-row gather replaces three 64 B-row gathers.  Callers still
+    select the constant factors for slot<0
     materials (those rows hold zeros).
     """
     comb = atlas.combined

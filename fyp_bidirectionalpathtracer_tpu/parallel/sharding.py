@@ -1,33 +1,41 @@
-"""Multi-chip tiled rendering via jax.sharding (no reference equivalent —
-the reference is single-GPU; SURVEY.md §2.5 maps its DispatchRays grid to
-this).
+"""Multi-device tiled rendering via jax.sharding (no reference equivalent —
+the reference is single-GPU).
 
 Strategy: rendering is embarrassingly parallel over pixels, so the image grid
 [H, W] shards by rows over a 1-D device mesh ('rows').  Scene arrays (BVH,
 triangles, materials, lights, textures) replicate — they are read-only
 gather sources.  The one cross-chip interaction is estimator 2's light-
 tracing splat (BDPTMain.rt.hlsl:199 writes arbitrary pixels): each shard
-scatters into a full-size splat buffer and XLA reduces it across the mesh —
-the scatter-add lowers to a psum over ICI, exactly the collective SURVEY.md
-§2.5 calls for.  Accumulation/BMFR history shards by rows with the image.
+scatters into a full-size splat buffer and the buffers are summed across
+the mesh (a psum, which XLA hands to NCCL on GPUs).  Accumulation/BMFR
+history shards by rows with the image.
 
-Everything goes through jit + NamedSharding annotations: XLA's SPMD
-partitioner inserts the collectives; we only lay out the data.
+Two steps: `sharded_wavefront_step` runs the per-shard wavefront under
+shard_map with an explicit splat psum; `sharded_render_step` wraps the
+whole frame in jit + NamedSharding annotations and lets XLA's SPMD
+partitioner insert the collectives (BMFR's cross-row taps need that).
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 ROW_AXIS = "rows"
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
+    """1-D row mesh over the first `n_devices` devices (all by default);
+    raises if fewer devices exist than were asked for."""
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:
+        if len(devices) < n_devices:
+            raise ValueError(
+                f"asked for a {n_devices}-device mesh but only "
+                f"{len(devices)} devices exist")
         devices = devices[:n_devices]
     return Mesh(np.asarray(devices), (ROW_AXIS,))
 
@@ -60,134 +68,19 @@ def replicate_tree(tree, mesh: Mesh):
     return jax.tree_util.tree_map(lambda x: jax.device_put(x, rep), tree)
 
 
-def sharded_megakernel_step(cfg, mesh: Mesh, interpret: bool | None = None):
-    """Multi-chip render step that runs the whole-frame Pallas megakernel
-    *per shard* via shard_map (the SPMD partitioner cannot split a
-    pallas_call, but shard_map executes it locally on each device's row
-    block).  Per-pixel RNG seeds derive from global pixel ids, so the
-    sharded frame reproduces the single-chip megakernel frame exactly; the
-    estimator-2 splat image is psum-reduced over the mesh (the one
-    cross-chip collective) inside render_frame_megakernel.
-
-    Scope: megakernel-supported scenes; BMFR runs per shard with row-halo
-    exchanges (bmfr_pass sharded mode — ppermute history margins +
-    exact 32-row regression block halos).  Returns a step(baked, camera,
-    accum, bmfr, gbuf_frame, bdpt_frame, reset) -> (channels, accum, bmfr).
-    """
-    import functools
-
-    try:
-        from jax import shard_map
-    except ImportError:  # pragma: no cover - older jax
-        from jax.experimental.shard_map import shard_map
-
-    from ..accel import pallas_frame as pf
-    from ..passes import bmfr as bmfr_mod
-    from ..passes import gbuffer as gbuffer_mod
-    from ..passes.accumulate import AccumState, accumulate
-
-    n = int(mesh.devices.size)
-    h, w = cfg.height, cfg.width
-    if h % n != 0 or (h // n * w) % 128 != 0:
-        raise ValueError(
-            f"row sharding needs height divisible by {n} and shard pixel "
-            f"counts divisible by 128 (got {h}x{w})"
-        )
-    sub_h = h // n
-    n_sub = sub_h * w
-    pad_cols = -(-n_sub // (8 * 128)) * 8  # per-shard cols incl. padding
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    # per-shard NDC rows, each shard's block padded independently
-    base = np.asarray(pf._base_ndc_rows_np(w, h))[:, : h * w // 128]
-    blocks = []
-    for s in range(n):
-        blk = base[:, s * (n_sub // 128):(s + 1) * (n_sub // 128)]
-        if blk.shape[1] < pad_cols:
-            blk = np.pad(blk, ((0, 0), (0, pad_cols - blk.shape[1]), (0, 0)))
-        blocks.append(blk)
-    ndc_all = jnp.asarray(np.concatenate(blocks, axis=1))
-
-    rep = P()
-    rows = P(ROW_AXIS)
-    accum_spec = AccumState(last_frame=rows, count=rep)
-    bmfr_spec = bmfr_mod.BMFRState(
-        prev_pos=rows, prev_norm=rows, prev_noisy=rows,
-        prev_filtered=rows, frame_number=rep,
-    )
-
-    def body(baked, camera, accum, bmfr_state, gbuf_frame, bdpt_frame,
-             reset, ndc):
-        idx = jax.lax.axis_index(ROW_AXIS)
-        pix0 = idx.astype(jnp.int32) * n_sub
-        scene = baked.with_camera(camera)
-        jitter = gbuffer_mod.pixel_jitter_for_frame(
-            bdpt_frame, cfg.gbuffer.jitter_mode
-        )
-        channels, frame_img = pf.render_frame_megakernel(
-            scene, w, h, bdpt_frame, jitter, cfg,
-            interpret=interpret, sub_height=sub_h, pixel_offset=pix0,
-            ndc_rows=ndc, axis_name=ROW_AXIS, gbuf_frame=gbuf_frame,
-        )
-        accum, accum_img = accumulate(
-            accum, frame_img, cfg.accumulate.max_accum_count, reset=reset
-        )
-        channels["Accumulated"] = accum_img
-        bmfr_state, out = bmfr_mod.bmfr_pass(
-            bmfr_state, channels, camera, cfg.bmfr,
-            axis_name=ROW_AXIS, n_shards=n, full_h=h,
-        )
-        channels["PipelineOutput"] = out
-        return channels, accum, bmfr_state
-
-    import inspect
-
-    kw = {}
-    smap_params = inspect.signature(shard_map).parameters
-    if "check_rep" in smap_params:
-        kw["check_rep"] = False
-    elif "check_vma" in smap_params:
-        kw["check_vma"] = False
-    fn = shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(rep, rep, accum_spec, bmfr_spec, rep, rep, rep,
-                  P(None, ROW_AXIS, None)),
-        out_specs=(rows, accum_spec, bmfr_spec),
-        **kw,
-    )
-    jitted = jax.jit(fn)
-
-    def step(baked, camera, accum, bmfr_state, gbuf_frame, bdpt_frame, reset):
-        return jitted(
-            baked, camera, accum, bmfr_state, gbuf_frame, bdpt_frame,
-            reset, ndc_all,
-        )
-
-    return step
-
-
 def sharded_wavefront_step(cfg, mesh: Mesh):
-    """Multi-chip wavefront render step via shard_map — each device runs the
-    full per-bounce wavefront (G-buffer + BDPT) on its row block with the
-    Pallas lane/cluster intersectors INTACT (the SPMD partitioner cannot
-    split a pallas_call, but shard_map executes it locally per device; the
-    megakernel path in sharded_megakernel_step already works this way).
+    """Multi-device wavefront render step via shard_map — each device runs
+    the full per-bounce wavefront (G-buffer + BDPT) on its row block.
 
     Global pixel semantics: RNG seeds and estimator-2 pixel projection use
-    global pixel ids (bdpt_pass row0/full_height), so the sharded frame is
-    bit-identical to the single-chip wavefront frame; the estimator-2 splat
-    psums over the mesh (the one cross-chip collective).
+    global pixel ids (bdpt_pass row0/full_height), so the sharded frame
+    matches the single-device frame up to the splat's summation order; the
+    estimator-2 splat psums over the mesh (the one cross-device
+    collective).
 
     Scope: any scene the wavefront path renders; BMFR runs per shard with
     row-halo exchanges (bmfr_pass sharded mode).
     """
-    try:
-        from jax import shard_map
-    except ImportError:  # pragma: no cover - older jax
-        from jax.experimental.shard_map import shard_map
-
     from ..ops.shading import make_shaded_tracer
     from ..passes import bdpt as bdpt_mod
     from ..passes import bmfr as bmfr_mod
@@ -216,8 +109,7 @@ def sharded_wavefront_step(cfg, mesh: Mesh):
             bdpt_frame, cfg.gbuffer.jitter_mode
         )
         intersect = scene.intersector()
-        trace = make_shaded_tracer(scene, sort_divergent=cfg.bdpt.sort_bounces,
-                                   bounce_tex_mean=cfg.bdpt.bounce_tex_mean)
+        trace = make_shaded_tracer(scene)
         lens_radius = (
             cfg.gbuffer.focal_length_gui / (2.0 * cfg.gbuffer.f_stop)
             if cfg.gbuffer.use_thin_lens
@@ -246,57 +138,32 @@ def sharded_wavefront_step(cfg, mesh: Mesh):
         channels["PipelineOutput"] = out
         return channels, accum, bmfr_state
 
-    import inspect
-
-    kw = {}
-    smap_params = inspect.signature(shard_map).parameters
-    if "check_rep" in smap_params:
-        kw["check_rep"] = False
-    elif "check_vma" in smap_params:
-        kw["check_vma"] = False
     fn = shard_map(
         body,
         mesh=mesh,
         in_specs=(rep, rep, accum_spec, bmfr_spec, rep, rep, rep),
         out_specs=(rows, accum_spec, bmfr_spec),
-        **kw,
+        check_vma=False,
     )
-    return jax.jit(fn)
+    return _placed_step(jax.jit(fn), mesh, h)
 
 
 def sharded_render_step(frame_fn, mesh: Mesh, height: int):
     """Wrap a whole-frame function so its image-shaped inputs/outputs shard
     by rows.  frame_fn signature matches pipeline.renderer.render_frame_fn
     (already partial-ed over cfg)."""
-    rows = row_sharded(mesh)
+    return _placed_step(jax.jit(frame_fn), mesh, height)
 
-    def spec_for(tree):
-        def leaf(x):
-            if hasattr(x, "shape") and getattr(x, "ndim", 0) >= 2 and x.shape[0] == height:
-                return rows
-            return replicated(mesh)
-        return jax.tree_util.tree_map(leaf, tree)
 
-    from ..accel import traverse as traverse_mod
+def _placed_step(jitted, mesh: Mesh, height: int):
+    """Lay the frame's inputs out on the mesh before calling `jitted`:
+    scene and camera replicated, accumulation/BMFR state by rows.  Every
+    frame then sees the same input shardings, so the step compiles once.
 
-    def traced(*args):
-        # Pallas custom-calls can't be SPMD-partitioned; trace the sharded
-        # step with the jnp intersectors (each row-shard is an independent
-        # wavefront, so nothing is lost except the single-chip kernels).
-        prev = traverse_mod.PALLAS_ENABLED
-        traverse_mod.PALLAS_ENABLED = False
-        try:
-            return frame_fn(*args)
-        finally:
-            traverse_mod.PALLAS_ENABLED = prev
-
-    jitted = jax.jit(traced)
-
-    # Replicating the baked scene tree is a host->device broadcast (~60 ms
-    # host RTT per CLAUDE.md); cache it per scene object so a progressive
-    # loop pays it once, not per frame.  State trees (accum/bmfr) come back
-    # from the jitted step already row-sharded, so re-device_put is a no-op
-    # after the first frame.
+    Replicating the baked scene tree is a host->device broadcast; it is
+    cached per scene object so a progressive loop pays it once, not per
+    frame.  State trees come back from the step already row-sharded, so
+    placing them again is a no-op after the first frame."""
     _placed: dict = {}
 
     def step(baked, camera, accum, bmfr_state, gbuf_frame, bdpt_frame, reset):

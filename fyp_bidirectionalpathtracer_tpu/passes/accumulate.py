@@ -9,10 +9,11 @@ checkpointable analogue of the pass's internal FBO.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class AccumState:
     last_frame: jnp.ndarray   # [H,W,4]
     count: jnp.ndarray        # [] int32 accumulated frames

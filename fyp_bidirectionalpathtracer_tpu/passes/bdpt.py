@@ -15,8 +15,8 @@ pixel):
      clamped, /(i+2) weighting (:161-167).
   4. estimator family 2 — light tracing: every light vertex connected to the
      camera; contributions land on *computed* pixels.  The reference's racy
-     non-atomic RMW splat (gOutput[id], :199) becomes a deterministic
-     scatter-add + one saturate.
+     non-atomic RMW splat (gOutput[id], :199) becomes a scatter-add (atomic
+     on the GPU, so f32 sums in varying order) + one saturate.
   5. estimator family 3 — all (s,t) vertex connections with visibility rays,
      unweighted contribution / pathLength, sequential saturate-accumulate
      (:212-233).
@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..core import rng
 from ..core.samplers import cos_hemisphere_sample, unit_sphere_sample
@@ -37,10 +36,11 @@ from ..ops import materials as mat
 from ..scene.camera import project_dir_to_pixel
 from ..scene.lights import eval_light
 from ..scene.types import LIGHT_DIRECTIONAL
+from ..utils import pytree
 from ..utils.config import BDPTConfig
 
 
-@struct.dataclass
+@pytree.dataclass
 class PathVertex:
     """PathVertex SoA over the pixel grid (RayPathData.hlsli:1-45)."""
 
@@ -75,7 +75,7 @@ class PathVertex:
         )
 
 
-@struct.dataclass
+@pytree.dataclass
 class Payload:
     """RayPayload SoA (RayPathData.hlsli:48-86)."""
 
@@ -116,25 +116,15 @@ def _nan_guard(c):
     return jnp.where(bad, 0.0, c)
 
 
-def shoot_ray(payload: Payload, trace, cfg: BDPTConfig,
-              coherent: bool = True) -> Payload:
+def shoot_ray(payload: Payload, trace, cfg: BDPTConfig) -> Payload:
     """One extension step for active lanes (globalIlluminationRay.hlsli).
 
     miss -> color=0, terminated=True, geometry kept stale (reference quirk);
     hit  -> shading data + sampleBRDF + updateRayData.
-
-    Extension wavefronts are always divergent (BRDF-sampled directions), so
-    callers pass coherent=False; the tracer decides what to do with that
-    (ops.shading.make_shaded_tracer: Morton sort, dense lanes, or plain
-    cluster order).
     """
     active = ~payload.terminated
-    # lean=True: this function only consumes hit.hit plus the sample_brdf
-    # inputs (n/diffuse/specular/roughness) and pos_w/v — the sorted cluster
-    # tier then inverse-permutes 11 columns in ONE sort instead of 22 in two
     hit, sd = trace(
         payload.ray_origin, payload.ray_dir, cfg.min_t, payload.ray_origin,
-        coherent=coherent, lean=True,
     )
     seed2, weight, l, pdf, is_spec = mat.sample_brdf(
         payload.seed, sd.n, sd.n, sd.v, sd.diffuse, sd.specular, sd.roughness,
@@ -307,8 +297,7 @@ def bdpt_pass(
     if trace is None:
         from ..ops.shading import make_shaded_tracer
 
-        trace = make_shaded_tracer(baked, sort_divergent=cfg.sort_bounces,
-                                   bounce_tex_mean=cfg.bounce_tex_mean)
+        trace = make_shaded_tracer(baked)
     cam = baked.data.camera
     lights = baked.data.lights
     pos4 = channels["WorldPosition"]
@@ -321,13 +310,10 @@ def bdpt_pass(
     g_height = height if full_height is None else full_height
     g_row0 = 0 if row0 is None else row0
 
-    def shadow_fn(o, d, tmin, tmax, coherent=True, const_origin=False):
+    def shadow_fn(o, d, tmin, tmax):
         if cfg.debug_stub_shadows:  # timing attribution only
             return jnp.ones(o.shape[:-1], bool)
-        return ~intersect(
-            o, d, tmin, tmax, closest=False, coherent=coherent,
-            const_origin=const_origin,
-        ).hit
+        return ~intersect(o, d, tmin, tmax, closest=False).hit
 
     valid = pos4[..., 3] != 0.0
     world_pos = pos4[..., :3]
@@ -399,11 +385,11 @@ def bdpt_pass(
                     merged = jax.tree_util.tree_map(
                         lambda a, b: jnp.stack([a, b]), payload, lpayload
                     )
-                    merged = shoot_ray(merged, trace, cfg, coherent=False)
+                    merged = shoot_ray(merged, trace, cfg)
                     payload = jax.tree_util.tree_map(lambda x: x[0], merged)
                     lpayload = jax.tree_util.tree_map(lambda x: x[1], merged)
                 else:
-                    lpayload = shoot_ray(lpayload, trace, cfg, coherent=False)
+                    lpayload = shoot_ray(lpayload, trace, cfg)
             if do_cam:
                 camera_path[depth + 1] = payload.vertex().where(
                     was_active_c, zeros_vert)
@@ -418,7 +404,7 @@ def bdpt_pass(
         for depth in range(1, d_max):
             was_active = ~payload.terminated
             if not cfg.debug_stub_extensions:
-                payload = shoot_ray(payload, trace, cfg, coherent=False)
+                payload = shoot_ray(payload, trace, cfg)
             camera_path[depth + 1] = payload.vertex().where(
                 was_active, zeros_vert)
         seed = payload.seed
@@ -437,7 +423,7 @@ def bdpt_pass(
         for depth in range(0, d_max):
             was_active = ~lpayload.terminated
             if not cfg.debug_stub_extensions:
-                lpayload = shoot_ray(lpayload, trace, cfg, coherent=False)
+                lpayload = shoot_ray(lpayload, trace, cfg)
             light_path[depth + 1] = lpayload.vertex().where(
                 was_active, zeros_vert)
             take[depth + 1] = jnp.where(
@@ -457,17 +443,14 @@ def bdpt_pass(
     # --- batched estimator visibility (ours) ---
     # The reference fires each estimator's shadow rays inline
     # (BDPTMain.rt.hlsl:106-233); visibility queries are deterministic and
-    # side-effect-free, so ALL of them (est-1 NEE + est-3 connections +
-    # est-2 camera connections) hoist into ONE any-hit query per frame:
-    # one direction-major sort amortizes over 3x the rays and mixes ray
-    # populations into tighter direction cells.  RNG order is untouched
-    # (the est-1 light picks still draw first, in reference order).
+    # side-effect-free, so each estimator family's rays hoist into one
+    # batched any-hit query per frame.  RNG order is untouched (the est-1
+    # light picks still draw first, in reference order).
     # Shadow rays whose contribution is PROVABLY zero without visibility
-    # are pre-masked to empty intervals (t_max = 0 < min_t): rays_to_rows
-    # marks them dead, the cluster tiers drop them from per-cell shortlists
-    # and slab tests (~free), and the result is output-invariant — the
-    # reference fires them all (BDPTMain.rt.hlsl:118-120,191-196) but
-    # multiplies the answer by zero.  est-1: nee_shade is exactly linear in
+    # are pre-masked to empty intervals (t_max = 0 < min_t), which can
+    # report no hit, and the result is output-invariant — the reference
+    # fires them all (BDPTMain.rt.hlsl:118-120,191-196) but multiplies the
+    # answer by zero.  est-1: nee_shade is exactly linear in
     # vis (shadow_mult = where(vis, N, 0), MaterialUtils:160-183), so lanes
     # whose UNSHADOWED shade is zero (backfacing light, terminated vertex,
     # background pixel) never need the ray.  est-2: the facing/in-range/
@@ -522,12 +505,8 @@ def bdpt_pass(
         e2_geom.append((dir_to_cam, jnp.where(pre_ok, dis, 0.0)))
         e2_pre.append((ix, iy, facing, pre_ok))
 
-    # Three separate direction-sorted batches, one per estimator family: a
-    # single merged 9-stack query measured WORSE (811 vs 781 ms/frame on
-    # pink_room, round 3, pre-premask) — mixing the populations spreads
-    # per-cell origin bounds and lengthens every cell's exact cluster
-    # shortlist.  cfg.merge_shadow_batches retests the merge under the
-    # current premasked tree (round-5 number in BASELINE.md).
+    # Three separate batches, one per estimator family, unless
+    # cfg.merge_shadow_batches fires them as one stacked query.
     if (cfg.merge_shadow_batches and not cfg.reverse_shadows
             and (n_e1 or e3_pairs or n_e2)):
         o_parts, d_parts, t_parts = [], [], []
@@ -548,7 +527,7 @@ def bdpt_pass(
             t_parts.append(jnp.stack([g[1] for g in e2_geom]))
         vis_all = shadow_fn(
             jnp.concatenate(o_parts), jnp.concatenate(d_parts), cfg.min_t,
-            jnp.concatenate(t_parts), coherent=False,
+            jnp.concatenate(t_parts),
         )
         k3 = len(e3_pairs)
         vis_b = vis_all[:n_e1]
@@ -564,19 +543,15 @@ def bdpt_pass(
         if cfg.reverse_shadows:
             # trace from the light point toward the vertex: same open
             # segment (min_t, dist) walked from the other end (t' = dist-t),
-            # but every lane's origin is a light position — with the
-            # direction sort the batch becomes per-light cones (see
+            # every lane's origin a light position (see
             # utils.config.BDPTConfig.reverse_shadows).  The light position
             # reconstructs exactly as the eval_light pseudo-position:
             # pos + l*dist (scene.lights.eval_light).
             vis_b = shadow_fn(
                 o1 + l1 * d1[..., None], -l1, 0.0, d1 - cfg.min_t,
-                coherent=not cfg.sort_shadows,
             )
         else:
-            vis_b = shadow_fn(
-                o1, l1, cfg.min_t, d1, coherent=not cfg.sort_shadows,
-            )
+            vis_b = shadow_fn(o1, l1, cfg.min_t, d1)
     if e3_pairs and not _merged_vis:
         # the reference's TMax is exactly lengthAB (BDPTMain.rt.hlsl:218-223)
         # with the far endpoint ON the connected surface, so accepting a hit
@@ -588,25 +563,21 @@ def bdpt_pass(
             jnp.stack([g[0] for g in e3_geom]),
             cfg.min_t,
             jnp.stack([g[1] for g in e3_geom]) - cfg.min_t,
-            coherent=False,
         )
     if n_e2 and not _merged_vis:
         d2 = jnp.stack([g[0] for g in e2_geom])
         dis2 = jnp.stack([g[1] for g in e2_geom])
         if cfg.reverse_shadows:
             # from the camera toward the light vertex: one shared EXACT
-            # origin for the whole batch (a cone after the direction sort)
+            # origin for the whole batch
             e2_vis = shadow_fn(
                 jnp.broadcast_to(cam.pos_w, d2.shape), -d2, 0.0,
                 dis2 - cfg.min_t,
-                coherent=not cfg.sort_shadows,
-                const_origin=True,  # one camera origin -> 3 fewer sort cols
             )
         else:
             e2_vis = shadow_fn(
                 jnp.stack([light_path[i + 1].pos for i in range(n_e2)]),
                 d2, cfg.min_t, dis2,
-                coherent=not cfg.sort_shadows,
             )
 
     # --- estimator 1: path tracing with NEE ---
@@ -645,10 +616,7 @@ def bdpt_pass(
         mask = (valid & vis)[..., None]
         out = jnp.where(mask, saturate(out + add), out)
 
-    # --- estimator 2: light tracing splats (deterministic scatter-add) ---
-    # TPU scatter-add is ~8x slower with a trailing component axis, so each
-    # channel scatters into its own flat [H*W] buffer.
-    splat_ch = [jnp.zeros(g_height * width, jnp.float32) for _ in range(4)]
+    # --- estimator 2: light tracing splats (scatter-add) ---
     camera_n = camera_n_pre
     e2_lin, e2_adds = [], [[], [], [], []]
     for i in range(n_e2):
@@ -677,15 +645,13 @@ def bdpt_pass(
         rgb_all = jnp.stack([jnp.concatenate(e2_adds[k]) for k in range(3)], -1)
         a_all = jnp.concatenate(e2_adds[3])
         splat_full = splat_mod.scatter_add_rgba(
-            cfg.splat_mode, lin_all, rgb_all, a_all, g_height * width,
-            alpha_is_count=True,
-            segments=len(e2_lin) if cfg.splat_segments else 1,
+            lin_all, rgb_all, a_all, g_height * width,
         ).reshape((g_height, width, 4))
     else:
-        splat_full = jnp.stack(splat_ch, -1).reshape((g_height, width, 4))
+        splat_full = jnp.zeros((g_height, width, 4), jnp.float32)
     if axis_name is not None:
         # light subpaths on any shard splat to any pixel: reduce the full
-        # image over the mesh (ICI psum), keep this shard's row block
+        # image over the mesh (psum), keep this shard's row block
         splat_full = jax.lax.psum(splat_full, axis_name)
     if full_height is None:
         splat = splat_full

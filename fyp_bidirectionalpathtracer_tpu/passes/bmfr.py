@@ -13,7 +13,7 @@ Rebuild of the reference's 3-stage DenoisePass
      like the reference: IGNORE_LD_fEATURES (rank-deficient column skipping,
      the default) and add-noise regularization.  The reference runs one
      256-thread group per block with groupshared reductions; here every block
-     is one batch element of dense [B, 1024, 13] math — MXU/VPU-regular, no
+     is one batch element of dense [B, 1024, 13] math, with no
      shared-memory choreography.
   3. postprocess (postprocess.ps.hlsl): second temporal accumulation of the
      filtered frame, alpha = max(1/spp, 0.1).
@@ -27,8 +27,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from ..utils import pytree
 from ..utils.config import BMFRConfig
 
 BLOCK_EDGE = 32
@@ -48,7 +48,7 @@ BLOCK_OFFSETS = jnp.asarray(
 )
 
 
-@struct.dataclass
+@pytree.dataclass
 class BMFRState:
     """History textures (DenoisePass.h mInputTex) + accumulation counter."""
 
@@ -77,8 +77,8 @@ def _pack_2x2(img):
 
     Entry [g_y, g_x] holds img[g-1+o] (edge-clamped) for the four bilinear
     offsets o in {(0,0),(1,0),(0,1),(1,1)}; gathering at g = base+1 fetches
-    all four taps of a bilinear footprint in ONE gather (TPU gathers cost
-    ~10 ms per 1M indices) with exact behavior for base = -1 edge cases.
+    all four taps of a bilinear footprint in ONE gather with exact behavior
+    for base = -1 edge cases.
     """
     padded = jnp.pad(img, ((1, 0), (1, 0), (0, 0)), mode="edge")
     right = jnp.concatenate([padded[:, 1:], padded[:, -1:]], axis=1)
@@ -90,12 +90,8 @@ def _pack_2x2(img):
 def _gather_2x2(pack, base, h, w, y0=0):
     """Fetch the 4-tap block for integer base coords ([H,W,2] int32).
     `y0` is the global row of the pack's first image row (sharded history
-    windows); `h` is the pack's image-row count.
-
-    TPU gather cost is flat for row widths up to 16 f32 columns (64 B) and
-    climbs steeply beyond (~8 ms/1M at 16 cols vs ~45 ms at 40 cols,
-    benchmarks/bmfr_pre_micro.py), so the wide pack is fetched as several
-    <=16-column gathers sharing one index vector."""
+    windows); `h` is the pack's image-row count.  The wide pack is fetched
+    as several <=16-column gathers sharing one index vector."""
     gx = jnp.clip(base[..., 0] + 1, 0, w)
     gy = jnp.clip(base[..., 1] - y0 + 1, 0, h)
     c = pack.shape[-1]
@@ -115,7 +111,7 @@ def _extend_rows(x, n_top, n_bot, axis_name, n_shards, full_h, mode):
     (mode='zero').
 
     When each halo fits in one neighbour (n <= sub_h) this is one
-    `ppermute` per direction over ICI; otherwise (tiny shards, e.g. the
+    `ppermute` per direction; otherwise (tiny shards, e.g. the
     driver dry run) it falls back to an `all_gather` + dynamic slice.
     """
     sub_h = x.shape[0]
@@ -149,12 +145,29 @@ def _extend_rows(x, n_top, n_bot, axis_name, n_shards, full_h, mode):
     )
 
 
+def _pack2bf16(x, y):
+    """Two f32 -> one i32 carrying (bf16(x) << 16) | bf16(y)."""
+    xb = jax.lax.bitcast_convert_type(x.astype(jnp.bfloat16), jnp.uint16)
+    yb = jax.lax.bitcast_convert_type(y.astype(jnp.bfloat16), jnp.uint16)
+    return (
+        (xb.astype(jnp.uint32) << 16) | yb.astype(jnp.uint32)
+    ).astype(jnp.int32)
+
+
+def _unpack2bf16(p):
+    u = p.astype(jnp.uint32)
+    x = jax.lax.bitcast_convert_type(
+        (u >> 16).astype(jnp.uint16), jnp.bfloat16).astype(jnp.float32)
+    y = jax.lax.bitcast_convert_type(
+        (u & jnp.uint32(0xFFFF)).astype(jnp.uint16),
+        jnp.bfloat16).astype(jnp.float32)
+    return x, y
+
+
 def _pack_hist_bf16(hist13):
     """[H,W,13] f32 history [pos3|norm3|noisy_rgb3|spp|filtered3] -> [H,W,7]
     i32 of bf16x2 pairs (see BMFRConfig.history_pack).  Pair layout:
     (px,py)(pz,nx)(ny,nz)(nr,ng)(nb,spp)(fr,fg)(fb,0)."""
-    from ..ops.splat_tile import _pack2bf16
-
     pairs = []
     order = list(range(13)) + [None]  # pad to 14 = 7 pairs
     for k in range(7):
@@ -168,8 +181,6 @@ def _pack_hist_bf16(hist13):
 def _unpack_hist_bf16(taps_i):
     """[H,W,28] i32 (4 taps x 7 pairs) -> (taps [H,W,40] in the f32 layout
     [pos3|norm3|noisy_rgb3|spp] per tap, filt_taps [H,W,12])."""
-    from ..ops.splat_tile import _unpack2bf16
-
     taps_cols = []
     filt_cols = []
     for t in range(4):
@@ -249,7 +260,7 @@ def preprocess(state: BMFRState, cur_pos, cur_norm, cur_noisy, prev_view_proj,
         # combined 13-value/tap fetch incl. the postprocess's prev_filtered
         # taps: 28 i32 cols = 2 gathers instead of pre 3 + post 1.  A
         # pre-PACKED [Hh, W, 7] i32 window (sharded halo exchange ships the
-        # bf16 pairs to halve ICI bytes) is accepted directly.
+        # bf16 pairs to halve its bytes) is accepted directly.
         if hist is None:
             hist = jnp.concatenate(
                 [state.prev_pos[..., :3], state.prev_norm[..., :3],
@@ -330,8 +341,7 @@ def _features_from_window(win, n_blocks_y: int, n_blocks_x: int):
     (block*32 + local + BLOCK_OFFSETS[frame%16]) with mirror addressing —
     a REGULAR grid: the whole tensor is one shifted window of the
     symmetric-padded image.  A pad + dynamic_slice + block reshape replaces
-    the 1M-index gather (TPU gathers cost ~8 ms/M at 12 columns; slices are
-    pure bandwidth).  `win` is that [n_by*32, n_bx*32, 12] window."""
+    a 1M-index gather with slices that are pure bandwidth.  `win` is that [n_by*32, n_bx*32, 12] window."""
     b = n_blocks_x * n_blocks_y
     row = (
         win.reshape(n_blocks_y, BLOCK_EDGE, n_blocks_x, BLOCK_EDGE, 12)
@@ -365,8 +375,6 @@ def _fit_window(win, n_blocks_y: int, n_blocks_x: int, frame_number,
     feats, alb = _features_from_window(win, n_blocks_y, n_blocks_x)
     x = _normalize_features(feats)
     solver = cfg.regression_solver
-    if solver == "auto":
-        solver = "normal" if jax.default_backend() == "tpu" else "qr"
     if cfg.remove_ld_features:
         wts = (_householder_qr_skip_ld(x) if solver == "qr"
                else _normal_eq_skip_ld(x))
@@ -472,8 +480,8 @@ def _householder_qr_skip_ld(a):
         u = a[:, :, col]
         mask_hi = rows[None, :] > limit[:, None]
         norm_sq = jnp.sum(jnp.where(mask_hi, u * u, 0.0), axis=1)
-        # one-hot reduction instead of take_along_axis: tiny dynamic
-        # gathers are latency-bound ops on TPU, fused selects are free
+        # one-hot reduction instead of take_along_axis: a masked select
+        # fuses into the surrounding reduction
         u_piv = jnp.sum(
             jnp.where(rows[None, :] == limit[:, None], u, 0.0), axis=1
         )
@@ -548,7 +556,7 @@ def _normal_eq_factor(a, skip_ld: bool):
     threshold (> 0.01, regressionCP.hlsl:255) and the resulting R — with
     the transformed color columns riding along as rmat[:, :, 10:13] = Q^T y
     rows — match the QR transliteration; the only differences are f32
-    rounding.  One MXU batched matmul reads `a` once instead of ten
+    rounding.  One batched matmul reads `a` once instead of ten
     reflection read-modify-write passes.
 
     Returns (rmat [B, 10, 13], limit [B]) like the QR builds."""
@@ -683,8 +691,8 @@ def regression_sharded(cur_pos, cur_norm, albedo, noisy, frame_number,
     rows; blocks straddling a shard boundary are recomputed by both
     neighbours from identical halo data, and each shard writes back only
     its own rows.  Halo: 32 rows
-    above + (32*n_loc - sub_h) <= 63 rows below, one ppermute each over
-    ICI (reference block grid: regressionCP.hlsl:28-58,
+    above + (32*n_loc - sub_h) <= 63 rows below, one ppermute each
+    (reference block grid: regressionCP.hlsl:28-58,
     DenoisePass.cpp:262-268)."""
     sub_h, w = noisy.shape[0], noisy.shape[1]
     n_blocks_x = (w + BLOCK_EDGE - 1) // BLOCK_EDGE + 1
@@ -789,7 +797,7 @@ def bmfr_pass(state: BMFRState, channels: dict, camera, cfg: BMFRConfig,
 
     Sharded mode (axis_name set, inside shard_map row sharding): history
     and current channels are this shard's rows; reprojection taps come from
-    a +-`cfg.shard_history_margin`-row halo window exchanged over ICI (taps
+    a +-`cfg.shard_history_margin`-row halo window exchanged between shards (taps
     reprojecting further than the margin are rejected like off-screen taps
     — exact vs single-chip whenever inter-frame motion stays within the
     margin), and regression runs per shard with exact 32-row block halos.
@@ -820,8 +828,6 @@ def bmfr_pass(state: BMFRState, channels: dict, camera, cfg: BMFRConfig,
     prev_pixel_f = jnp.stack(jnp.broadcast_arrays(xs, ys), -1)
 
     pack = cfg.history_pack
-    if pack == "auto":
-        pack = "bf16" if jax.default_backend() == "tpu" else "f32"
     if not (cfg.preprocess and cfg.postprocess):
         # the combined fetch needs both stages' taps on one index vector
         pack = "f32"
@@ -832,7 +838,7 @@ def bmfr_pass(state: BMFRState, channels: dict, camera, cfg: BMFRConfig,
         if sharded and pack == "bf16":
             # sharded bf16: pack the 13-col history into bf16x2 pairs
             # BEFORE the halo exchange — the same combined fetch as
-            # single-chip, at half the ICI bytes (7 i32 vs 13 f32 cols)
+            # single-chip, at half the bytes (7 i32 vs 13 f32 cols)
             hist = _extend_rows(
                 _pack_hist_bf16(jnp.concatenate(
                     [state.prev_pos[..., :3], state.prev_norm[..., :3],

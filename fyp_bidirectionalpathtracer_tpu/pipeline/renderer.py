@@ -10,8 +10,7 @@ camera-move accumulation reset (RenderingPipeline.cpp:611-688 frame flow).
 
 The whole frame is one jitted function: XLA sees G-buffer + BDPT +
 accumulation (+ BMFR) as a single fused program — no per-pass host sync,
-which is the TPU-native replacement for the reference's command-list
-recording.
+which replaces the reference's command-list recording.
 """
 from __future__ import annotations
 
@@ -26,12 +25,20 @@ from ..passes import bmfr as bmfr_mod
 from ..passes import gbuffer as gbuffer_mod
 from ..passes.accumulate import AccumState, accumulate, camera_moved
 from ..ops import tonemap as tonemap_mod
-from ..scene.camera import begin_frame, derive_camera, make_camera
+from ..scene.camera import begin_frame, derive_camera
 from ..scene.scene import BakedScene
 from ..utils.config import RenderConfig
 
 GBUF_FRAME_INIT = 0xDEADBEEF   # LightProbeGBufferPass seed origin
 BDPT_FRAME_INIT = 0x1337       # BDPTPass.h:40
+
+# The per-frame camera update and move test as compiled programs: run
+# eagerly they are ~60 tiny device ops (a 4x4 inverse among them), which
+# cost more than the whole frame on a GPU.  Every camera the renderer holds
+# comes out of _begin_frame, so unchanged poses reproduce their view_proj
+# bit for bit and camera_moved (tolerance 0) stays false.
+_begin_frame = jax.jit(begin_frame)
+_camera_moved = jax.jit(camera_moved)
 
 
 @dataclass
@@ -54,67 +61,12 @@ def render_frame_fn(
     reset,
     cfg: RenderConfig,
 ):
-    """One full frame (jittable; cfg static). Returns (channels, accum, bmfr,
-    raw_bdpt)."""
-    from ..accel.pallas_frame import render_frame_megakernel, supports_megakernel
-    from ..ops.shading import make_shaded_tracer
-
+    """One full frame (jittable; cfg static). Returns (channels, accum,
+    bmfr)."""
     scene = baked.with_camera(camera)
-    jitter = gbuffer_mod.pixel_jitter_for_frame(bdpt_frame, cfg.gbuffer.jitter_mode)
-
-    mk = cfg.bdpt.megakernel
-    use_mk = (
-        mk != "off"
-        and supports_megakernel(scene, cfg)
-        and (mk == "on" or jax.default_backend() == "tpu")
-    )
-    if (not use_mk and mk == "auto" and jax.default_backend() == "tpu"
-            and cfg.bdpt.connection_weight != "uniform"):
-        # corrected MIS runs in-kernel for untextured scenes (round 5);
-        # only deferred-TEXTURE scenes still fall back to the wavefront
-        # (their replay bakes the uniform 1/totalLength into the
-        # post-kernel clamp) — say so instead of silently routing
-        import logging
-
-        logging.getLogger(__name__).warning(
-            "connection_weight=%r on a textured scene routes this frame "
-            "to the per-bounce wavefront (the deferred-texture megakernel "
-            "supports 'uniform' only); expect ~2x the megakernel frame "
-            "time", cfg.bdpt.connection_weight,
-        )
-    if use_mk:
-        channels, frame_img = render_frame_megakernel(
-            scene, cfg.width, cfg.height, bdpt_frame, jitter, cfg,
-            interpret=None if mk == "auto" else jax.default_backend() != "tpu",
-            gbuf_frame=gbuf_frame,
-        )
-    else:
-        intersect = scene.intersector()
-        trace = make_shaded_tracer(scene, sort_divergent=cfg.bdpt.sort_bounces,
-                                   bounce_tex_mean=cfg.bdpt.bounce_tex_mean)
-
-        lens_radius = (
-            cfg.gbuffer.focal_length_gui / (2.0 * cfg.gbuffer.f_stop)
-            if cfg.gbuffer.use_thin_lens
-            else 0.0
-        )
-        channels = gbuffer_mod.ray_traced_gbuffer(
-            scene,
-            trace,
-            cfg.width,
-            cfg.height,
-            gbuf_frame,
-            jitter,
-            use_thin_lens=cfg.gbuffer.use_thin_lens,
-            lens_radius=lens_radius,
-            focal_len=cfg.gbuffer.focal_length_gui,
-            env_bilinear=cfg.gbuffer.env_bilinear,
-        )
-
-        frame_img = bdpt_mod.bdpt_pass(
-            scene, intersect, channels, bdpt_frame, jitter, cfg.bdpt, trace=trace
-        )
-        channels["BDPT"] = frame_img
+    channels = _gbuffer_stage(scene, gbuf_frame, bdpt_frame, cfg)
+    frame_img = _bdpt_stage(scene, channels, bdpt_frame, cfg)
+    channels["BDPT"] = frame_img
 
     accum, accum_img = accumulate(
         accum, frame_img, cfg.accumulate.max_accum_count, reset=reset
@@ -128,38 +80,61 @@ def render_frame_fn(
     return channels, accum, bmfr_state
 
 
+def _gbuffer_stage(scene, gbuf_frame, bdpt_frame, cfg: RenderConfig):
+    """Ray-traced G-buffer channels for one frame."""
+    from ..ops.shading import make_shaded_tracer
+
+    jitter = gbuffer_mod.pixel_jitter_for_frame(bdpt_frame, cfg.gbuffer.jitter_mode)
+    lens_radius = (
+        cfg.gbuffer.focal_length_gui / (2.0 * cfg.gbuffer.f_stop)
+        if cfg.gbuffer.use_thin_lens
+        else 0.0
+    )
+    return gbuffer_mod.ray_traced_gbuffer(
+        scene,
+        make_shaded_tracer(scene),
+        cfg.width,
+        cfg.height,
+        gbuf_frame,
+        jitter,
+        use_thin_lens=cfg.gbuffer.use_thin_lens,
+        lens_radius=lens_radius,
+        focal_len=cfg.gbuffer.focal_length_gui,
+        env_bilinear=cfg.gbuffer.env_bilinear,
+    )
+
+
+def _bdpt_stage(scene, channels, bdpt_frame, cfg: RenderConfig):
+    """The BDPT estimator image [H,W,4] over this frame's G-buffer."""
+    jitter = gbuffer_mod.pixel_jitter_for_frame(bdpt_frame, cfg.gbuffer.jitter_mode)
+    return bdpt_mod.bdpt_pass(
+        scene, scene.intersector(), channels, bdpt_frame, jitter, cfg.bdpt
+    )
+
+
 class Renderer:
     """Progressive renderer over a baked scene (Sample::renderFrame loop)."""
 
     def __init__(self, baked: BakedScene, config: RenderConfig, mesh=None):
         self.baked = baked
         self.cfg = config
-        self.camera = derive_camera(
+        self.camera = _begin_frame(derive_camera(
             baked.data.camera.replace(aspect=jnp.asarray(config.width / config.height, jnp.float32))
-        )
+        ))
         self.state = RenderState(
             accum=AccumState.create(config.height, config.width),
             bmfr=bmfr_mod.BMFRState.create(config.height, config.width),
         )
         self._prev_view_proj = self.camera.view_proj
         if mesh is not None:
-            from ..accel.pallas_frame import supports_megakernel
             from ..parallel import sharding
 
-            if (
-                not config.bmfr.enabled
-                and config.bdpt.megakernel != "off"
-                and supports_megakernel(baked, config)
-            ):
-                # per-shard Pallas megakernel + splat psum over the mesh
-                self._fn = sharding.sharded_megakernel_step(config, mesh)
-            elif not config.bmfr.enabled and config.height % mesh.devices.size == 0:
-                # per-shard wavefront with the Pallas intersectors intact
+            if not config.bmfr.enabled and config.height % mesh.devices.size == 0:
+                # per-shard wavefront (shard_map) + splat psum over the mesh
                 self._fn = sharding.sharded_wavefront_step(config, mesh)
             else:
                 # annotation-based SPMD: XLA partitions gathers globally
-                # (required for BMFR's cross-row reprojection taps) but
-                # sheds the Pallas kernels
+                # (BMFR's cross-row reprojection taps need it)
                 self._fn = sharding.sharded_render_step(
                     functools.partial(render_frame_fn, cfg=config),
                     mesh, config.height,
@@ -172,7 +147,7 @@ class Renderer:
 
     # -- camera control ------------------------------------------------
     def set_camera_pose(self, pos, target, up=(0, 1, 0)):
-        self.camera = begin_frame(
+        self.camera = _begin_frame(
             self.camera.replace(
                 pos_w=jnp.asarray(pos, jnp.float32),
                 target=jnp.asarray(target, jnp.float32),
@@ -205,7 +180,7 @@ class Renderer:
 
     # -- frame loop ------------------------------------------------------
     def render_frame(self):
-        reset = camera_moved(self._prev_view_proj, self.camera.view_proj)
+        reset = _camera_moved(self._prev_view_proj, self.camera.view_proj)
         self.channels, accum, bmfr_state = self._fn(
             self.baked,
             self.camera,
@@ -220,7 +195,7 @@ class Renderer:
         self.state.frame_index += 1
         self._prev_view_proj = self.camera.view_proj
         # roll prevViewProj for next frame's reprojection
-        self.camera = begin_frame(self.camera)
+        self.camera = _begin_frame(self.camera)
         return self.channels["PipelineOutput"]
 
     def render_frame_profiled(self, prof):
@@ -229,61 +204,22 @@ class Renderer:
 
         The production frame is ONE fused jit (render_frame_fn), so per-pass
         attribution requires running the stages as separate jitted calls
-        with an honest device sync (scalar readback — see utils.profiler)
-        after each.  Stage boundaries prevent some cross-pass fusion, so the
+        with a device sync (block_until_ready — see utils.profiler) after
+        each.  Stage boundaries prevent some cross-pass fusion, so the
         per-pass sum usually runs a little above the fused frame time; it is
         an attribution estimate, exactly like the reference's per-pass GPU
         timestamp scraping (extractProfilingData).
         """
         cfg = self.cfg
         if not hasattr(self, "_stage_fns"):
-            from ..accel.pallas_frame import render_frame_megakernel, supports_megakernel
-            from ..ops.shading import make_shaded_tracer
-
-            use_mk = (
-                cfg.bdpt.megakernel != "off"
-                and supports_megakernel(self.baked, cfg)
-                and (cfg.bdpt.megakernel == "on" or jax.default_backend() == "tpu")
-            )
-
-            def mk_stage(baked, camera, gbuf_frame, bdpt_frame):
-                scene = baked.with_camera(camera)
-                jitter = gbuffer_mod.pixel_jitter_for_frame(
-                    bdpt_frame, cfg.gbuffer.jitter_mode)
-                return render_frame_megakernel(
-                    scene, cfg.width, cfg.height, bdpt_frame, jitter, cfg,
-                    interpret=None if cfg.bdpt.megakernel == "auto"
-                    else jax.default_backend() != "tpu",
-                    gbuf_frame=gbuf_frame,
-                )
 
             def gbuf_stage(baked, camera, gbuf_frame, bdpt_frame):
-                scene = baked.with_camera(camera)
-                jitter = gbuffer_mod.pixel_jitter_for_frame(
-                    bdpt_frame, cfg.gbuffer.jitter_mode)
-                trace = make_shaded_tracer(
-                    scene, sort_divergent=cfg.bdpt.sort_bounces)
-                lens_radius = (
-                    cfg.gbuffer.focal_length_gui / (2.0 * cfg.gbuffer.f_stop)
-                    if cfg.gbuffer.use_thin_lens else 0.0)
-                return gbuffer_mod.ray_traced_gbuffer(
-                    scene, trace, cfg.width, cfg.height, gbuf_frame, jitter,
-                    use_thin_lens=cfg.gbuffer.use_thin_lens,
-                    lens_radius=lens_radius,
-                    focal_len=cfg.gbuffer.focal_length_gui,
-                    env_bilinear=cfg.gbuffer.env_bilinear,
-                )
+                return _gbuffer_stage(baked.with_camera(camera), gbuf_frame,
+                                      bdpt_frame, cfg)
 
             def bdpt_stage(baked, camera, channels, bdpt_frame):
-                scene = baked.with_camera(camera)
-                jitter = gbuffer_mod.pixel_jitter_for_frame(
-                    bdpt_frame, cfg.gbuffer.jitter_mode)
-                trace = make_shaded_tracer(
-                    scene, sort_divergent=cfg.bdpt.sort_bounces,
-                    bounce_tex_mean=cfg.bdpt.bounce_tex_mean)
-                return bdpt_mod.bdpt_pass(
-                    scene, scene.intersector(), channels, bdpt_frame, jitter,
-                    cfg.bdpt, trace=trace)
+                return _bdpt_stage(baked.with_camera(camera), channels,
+                                   bdpt_frame, cfg)
 
             def accum_stage(accum, frame_img, reset):
                 return accumulate(
@@ -295,8 +231,6 @@ class Renderer:
                                           cfg.bmfr)
 
             self._stage_fns = {
-                "use_mk": use_mk,
-                "megakernel": jax.jit(mk_stage),
                 "gbuffer": jax.jit(gbuf_stage),
                 "bdpt": jax.jit(bdpt_stage),
                 "accumulate": jax.jit(accum_stage),
@@ -304,25 +238,19 @@ class Renderer:
             }
 
         st = self._stage_fns
-        reset = camera_moved(self._prev_view_proj, self.camera.view_proj)
+        reset = _camera_moved(self._prev_view_proj, self.camera.view_proj)
         gbuf_frame = jnp.uint32(GBUF_FRAME_INIT + self.state.frame_index)
         bdpt_frame = jnp.uint32(BDPT_FRAME_INIT + self.state.frame_index)
         with prof.event("frame") as fh:
-            if st["use_mk"]:
-                with prof.event("megakernel") as h:
-                    channels, frame_img = st["megakernel"](
-                        self.baked, self.camera, gbuf_frame, bdpt_frame)
-                    h[0] = frame_img
-            else:
-                with prof.event("gbuffer") as h:
-                    channels = st["gbuffer"](
-                        self.baked, self.camera, gbuf_frame, bdpt_frame)
-                    h[0] = channels
-                with prof.event("bdpt") as h:
-                    frame_img = st["bdpt"](
-                        self.baked, self.camera, channels, bdpt_frame)
-                    h[0] = frame_img
-                channels["BDPT"] = frame_img
+            with prof.event("gbuffer") as h:
+                channels = st["gbuffer"](
+                    self.baked, self.camera, gbuf_frame, bdpt_frame)
+                h[0] = channels
+            with prof.event("bdpt") as h:
+                frame_img = st["bdpt"](
+                    self.baked, self.camera, channels, bdpt_frame)
+                h[0] = frame_img
+            channels["BDPT"] = frame_img
             with prof.event("accumulate") as h:
                 accum, accum_img = st["accumulate"](
                     self.state.accum, frame_img, reset)
@@ -339,7 +267,7 @@ class Renderer:
         self.state.bmfr = bmfr_state
         self.state.frame_index += 1
         self._prev_view_proj = self.camera.view_proj
-        self.camera = begin_frame(self.camera)
+        self.camera = _begin_frame(self.camera)
         return denoised
 
     def render(self, n_frames: int):
@@ -356,7 +284,7 @@ class Renderer:
 
 
 def make_cornell_renderer(size: int = 256, **cfg_kw) -> Renderer:
-    """Convenience: Cornell-box renderer (BASELINE config 1)."""
+    """Convenience: Cornell-box renderer."""
     from ..models.procedural import cornell_box
     from ..scene.scene import Scene
 

@@ -21,8 +21,8 @@ from .types import CameraData
 
 
 def _mm(a, b):
-    """4x4 matmul at full f32 precision (TPU default rounds to bf16, which
-    visibly corrupts reprojection matrices)."""
+    """4x4 matmul at full f32 precision (a reduced-precision default such as
+    TF32 visibly corrupts reprojection matrices)."""
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 

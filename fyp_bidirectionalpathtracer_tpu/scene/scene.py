@@ -13,18 +13,17 @@ from dataclasses import dataclass, field
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ..accel import bvh as bvh_mod
 from ..accel.traverse import TriSoA, bake_triangles, make_intersector
 from ..models.procedural import BuiltScene, MaterialDesc, MeshData
+from ..utils import pytree
 from . import camera as camera_mod
 from .lights import make_light_array
 from .types import (
     BVHArrays,
     GeometryArrays,
     MaterialArray,
-    SHADING_METAL_ROUGH,
     SceneData,
     TextureAtlas,
 )
@@ -218,27 +217,6 @@ class Scene:
             em_tex[i] = add_image(md.emissive_image)
             nm_tex[i] = add_image(getattr(md, "normal_map_image", None))
 
-        # Deferred-texture denominators: a textured material's base constant
-        # is unused by the direct-sampling paths (ops.shading._tap_kinds
-        # selects the texture), so bake the texture MEAN into it — the
-        # megakernel then shades with the mean albedo (lobe selection sees a
-        # representative color) and the post-kernel texel/mean ratios stay
-        # O(1) (accel.pallas_frame._textured_replay).  Floored at 1e-3 so
-        # the ratio denominator can't blow up.
-        for i in range(m_count):
-            if bc_tex[i] >= 0:
-                base_color[i, :3] = np.maximum(
-                    images[bc_tex[i]][:, :, :3].mean(axis=(0, 1)), 1e-3
-                )
-            # spec/emissive means likewise (textured materials never read
-            # these constants on the exact paths — _tap_kinds selects the
-            # texture — so they are free to carry the means for the
-            # bounce_tex_mean secondary-shading mode, utils/config.py)
-            if sp_tex[i] >= 0:
-                specular[i] = images[sp_tex[i]].mean(axis=(0, 1))
-            if em_tex[i] >= 0:
-                emissive[i] = images[em_tex[i]][:, :, :3].mean(axis=(0, 1))
-
         if images:
             data = np.stack(images)
             rx = np.roll(data, -1, axis=2)
@@ -252,9 +230,9 @@ class Scene:
             combined = None
             n_kinds = (int((bc_tex >= 0).any()) + int((sp_tex >= 0).any())
                        + int((em_tex >= 0).any()))
-            # one combined 48 B gather (~23 ms/1M) only beats the per-kind
-            # packed taps (~8-22 ms each) when >=2 kinds are textured;
-            # base-only scenes keep the single packed tap
+            # one combined 48 B gather replaces the per-kind packed taps
+            # when >=2 kinds are textured; base-only scenes keep the single
+            # packed tap
             if n_kinds >= 2 and m_count * r * r * 48 <= 768 * 1024 * 1024:
                 q = np.clip(np.rint(data * 255.0), 0, 255).astype(np.uint8)
                 qp = np.concatenate(
@@ -334,40 +312,16 @@ class Scene:
         )
         from ..ops.alpha import has_alpha_materials
 
-        # Static gate for the deferred-texture megakernel
-        # (accel.pallas_frame): every estimator term is a monomial in the
-        # per-vertex DIFFUSE albedo (evalBRDF dispatches on the sampled lobe,
-        # MaterialUtils.hlsli:102-110), so base-color textures can be applied
-        # AFTER the kernel — but only when nothing NON-linear is textured:
-        # no specular maps (Fresnel/roughness), no normal maps, and no
-        # metal-rough material whose metalness (specular.b) mixes the base
-        # texture into the specular color (HostDeviceSharedCode.h:119-135
-        # decode).  Emissive maps are fine (additive at the primary vertex
-        # only, BDPTMain.rt.hlsl:155-158).
-        bc_textured = bc_tex >= 0
-        metal_mix = (
-            bc_textured
-            & (shading_model == SHADING_METAL_ROUGH)
-            & (specular[:, 2] > 0.0)
-        )
-        tex_defer_ok = bool(
-            bc_textured.any()
-            and not (sp_tex >= 0).any()
-            and not (nm_tex >= 0).any()
-            and not metal_mix.any()
-        )
-
         baked = BakedScene(
             data=data, tris=tris,
             has_alpha=has_alpha_materials(materials, atlas),
             has_normal_maps=bool((nm_tex >= 0).any()),
-            tex_defer_ok=tex_defer_ok,
         )
         object.__setattr__(baked, "host", self)
         return baked
 
 
-@struct.dataclass
+@pytree.dataclass
 class BakedScene:
     """SceneData + intersection-ready triangles (a jit-traceable pytree).
 
@@ -378,19 +332,13 @@ class BakedScene:
     data: SceneData
     tris: TriSoA
     # static (non-pytree): does any material have sub-threshold base alpha?
-    has_alpha: bool = struct.field(pytree_node=False, default=False)
+    has_alpha: bool = pytree.field(pytree_node=False, default=False)
     # static: does any material carry a normal map?  Gates the G-buffer's
     # normal-mapping step (Shading.slang:135-157, primary hits only).
-    has_normal_maps: bool = struct.field(pytree_node=False, default=False)
-    # static: base-color-only texturing — the scene qualifies for the
-    # deferred-texture megakernel (see bake() for the exact condition).
-    tex_defer_ok: bool = struct.field(pytree_node=False, default=False)
+    has_normal_maps: bool = pytree.field(pytree_node=False, default=False)
 
     def intersector(self, brute_threshold: int = 512):
-        intersect = make_intersector(
-            self.data.bvh, self.tris, brute_threshold,
-            materials=self.data.materials,
-        )
+        intersect = make_intersector(self.data.bvh, self.tris, brute_threshold)
         if self.has_alpha:
             from ..ops.alpha import wrap_intersector
 
@@ -401,7 +349,6 @@ class BakedScene:
         out = BakedScene(
             data=self.data.replace(camera=cam), tris=self.tris,
             has_alpha=self.has_alpha, has_normal_maps=self.has_normal_maps,
-            tex_defer_ok=self.tex_defer_ok,
         )
         object.__setattr__(out, "host", getattr(self, "host", None))
         return out

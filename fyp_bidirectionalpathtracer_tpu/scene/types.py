@@ -10,8 +10,9 @@ addressable from jitted kernels.
 """
 from __future__ import annotations
 
-from flax import struct
 import jax.numpy as jnp
+
+from ..utils import pytree
 
 # Light type ids (HostDeviceSharedMacros.h:145-150)
 LIGHT_POINT = 0
@@ -28,7 +29,7 @@ SHADING_SPEC_GLOSS = 2
 DEFAULT_MAX_LIGHTS = 16
 
 
-@struct.dataclass
+@pytree.dataclass
 class CameraData:
     """Pinhole/thin-lens camera. Derived fields are produced by
     scene.camera.derive_camera and must be refreshed after moving it."""
@@ -53,7 +54,7 @@ class CameraData:
     inv_view_proj: jnp.ndarray    # [4,4]
 
 
-@struct.dataclass
+@pytree.dataclass
 class LightArray:
     """Fixed-capacity analytic light table (SoA). `count` lights are valid."""
 
@@ -67,16 +68,12 @@ class LightArray:
     count: jnp.ndarray            # [] int32
 
 
-@struct.dataclass
+@pytree.dataclass
 class MaterialArray:
     """Material table (SoA); textures referenced by atlas slot id (-1 none)."""
 
-    # [M,4] rgba (a = opacity).  CAUTION: for textured materials
-    # (base_color_tex >= 0) Scene.bake overwrites rgb with the TEXTURE MEAN
-    # (floored at 1e-3) — the deferred-texture megakernel's replay divides
-    # texel taps by this constant, so it is a denominator, not the authored
-    # color.  Consumers that need the authored value must keep their own
-    # copy (shading ignores the constant whenever the slot is >= 0).
+    # [M,4] rgba (a = opacity); shading reads the texture instead of the
+    # rgb constant whenever base_color_tex >= 0
     base_color: jnp.ndarray
     specular: jnp.ndarray         # [M,4] (spec-gloss: rgb=spec, a=gloss;
                                   #        metal-rough: g=rough, b=metal)
@@ -91,12 +88,12 @@ class MaterialArray:
     normal_tex: jnp.ndarray       # [M] int32 (Shading.slang:135-157)
 
 
-@struct.dataclass
+@pytree.dataclass
 class TextureAtlas:
     """All scene textures resampled onto fixed-size atlas slots [T,R,R,4].
 
     The reference binds one Texture2D per material through the shader table;
-    on TPU a single stacked array + (slot, uv) gather gives the same lookup
+    here a single stacked array + (slot, uv) gather gives the same lookup
     without per-material control flow.  R defaults to 256.
     """
 
@@ -104,17 +101,13 @@ class TextureAtlas:
     # original sizes kept for completeness / debugging
     sizes: jnp.ndarray            # [T, 2] int32 (w, h)
     # [T, R, R, 16] wrap-packed 2x2 texel neighborhoods: a bilinear lookup
-    # is ONE 16-column (64 B row) gather — the TPU gather sweet spot —
-    # instead of four 4-column gathers (see ops.texture, CLAUDE.md).
+    # is ONE 16-column (64 B row) gather instead of four 4-column gathers
+    # (see ops.texture).
     packed: jnp.ndarray | None = None
     # [M*R*R, 12] uint32 MATERIAL-indexed combined texel table: the 2x2
     # wrap neighborhoods of ALL THREE texture kinds (base/spec/emissive) at
-    # one texel, u8-packed 4 bytes per u32 (48 B rows).  Measured on v5e
-    # (pink_room atlas), a 1M-index gather from a real multi-MB HBM table
-    # costs ~22-24 ms REGARDLESS of table size, row width (<=64 B) or index
-    # locality — the cost is per-index latency — so the lever is gather
-    # COUNT: one combined tap replaces three per-kind taps (66 -> ~35 ms
-    # incl. unpack; ops.texture.sample_combined, benchmarks/shade_micro.py).
+    # one texel, u8-packed 4 bytes per u32 (48 B rows): one combined tap
+    # replaces three per-kind taps (ops.texture.sample_combined).
     # Texels quantize to u8 (they are u8-sourced; resampling drift
     # <=1/510), constants stay exact via the slot<0 fallback.
     combined: jnp.ndarray | None = None
@@ -122,16 +115,16 @@ class TextureAtlas:
     # e.g. a specular map, the per-bounce specular gather is skipped
     # entirely (ops.texture.sample_or_constant static_used).  Default True
     # = conservative (always gather).
-    any_base: bool = struct.field(pytree_node=False, default=True)
-    any_spec: bool = struct.field(pytree_node=False, default=True)
-    any_emissive: bool = struct.field(pytree_node=False, default=True)
+    any_base: bool = pytree.field(pytree_node=False, default=True)
+    any_spec: bool = pytree.field(pytree_node=False, default=True)
+    any_emissive: bool = pytree.field(pytree_node=False, default=True)
 
     @property
     def resolution(self) -> int:
         return self.data.shape[1] if self.data.ndim == 4 else 0
 
 
-@struct.dataclass
+@pytree.dataclass
 class GeometryArrays:
     """One global triangle soup (the app loads scenes with RemoveInstancing —
     SceneLoaderWrapper.cpp:58 — so a flat, pre-transformed soup is faithful).
@@ -144,7 +137,7 @@ class GeometryArrays:
     material_id: jnp.ndarray      # [F] int32
 
 
-@struct.dataclass
+@pytree.dataclass
 class BVHArrays:
     """Flattened threaded BVH (see accel.bvh). Traversal follows hit/miss
     links so it needs no per-ray stack — one int32 cursor per ray."""
@@ -158,7 +151,7 @@ class BVHArrays:
     tri_order: jnp.ndarray        # [F] int32 leaf-contiguous triangle permutation
 
 
-@struct.dataclass
+@pytree.dataclass
 class SceneData:
     """Everything a render pass needs, on device."""
 

@@ -36,105 +36,21 @@ class BDPTConfig:
     enable_path_tracing: bool = True    # estimator 1 (NEE path tracing)
     enable_light_tracing: bool = True   # estimator 2 (camera splats)
     enable_connections: bool = True     # estimator 3 (s,t connections)
-    # splat accumulation strategy (see ops.splat.MODES): 'auto' =
-    # tiled_rgb8e on TPU (sort + MXU one-hot tile sums with an 8-bit
-    # shared-exponent payload pack; full-pipeline 21.9 vs 27.0 ms/frame for
-    # plain 'tiled', benchmarks/cornell_splat_micro.py) / direct elsewhere;
-    # 'direct' 4 flat scatter-adds, 'sorted' sort+segment-sum+per-channel
-    # sorted scatter, 'packed' sort+segment-sum+one i32 scatter-max+one wide
-    # gather, 'complex' two complex64 scatter-adds (measured 10x slower on
-    # TPU; kept for documentation), 'tiled*' the Pallas tile kernel family
-    # (ops/splat_tile.py)
-    splat_mode: str = "auto"
-    # Per-depth segment sorts inside the tiled splat (ops/splat_tile.py
-    # `segments`): S batched sorts of U/S updates instead of one flat
-    # U-update sort.  Default OFF: in-frame measured-NEGATIVE on v5e —
-    # a [S, U/S] f32 sort operand is sublane-padded to 8 rows, so at S=3
-    # the sort moves ~2.7x the flat sort's bytes (segments_on 34.3 ms vs
-    # flat ~22 ms whole Cornell 720p frame, round 4), plus S DMA pipelines
-    # + S one-hot dots per tile in the kernel.  Kept as an opt-in because
-    # per-depth runs preserve the reference's depth-major accumulation
-    # order with a cheaper key (no depth bits needed).
-    splat_segments: bool = False
-    # whole-frame megakernel (accel.pallas_frame): 'auto' uses it on TPU for
-    # scenes in its scope (untextured, constant env, pinhole, uniform
-    # weights), 'on' forces it (interpret mode off-TPU; tests), 'off' always
-    # uses the per-bounce wavefront.
-    megakernel: str = "auto"
-    # deferred texturing: let base-color(+emissive)-textured scenes use the
-    # whole-frame megakernel — the kernel shades with each material's MEAN
-    # texture color and the texture/mean ratio is applied per estimator term
-    # after the kernel (every term is monomial in per-vertex diffuse albedo;
-    # see accel.pallas_frame).  Estimator deviation vs the reference: lobe
-    # -selection probabilities (probabilityToSampleDiffuse,
-    # MaterialUtils.hlsli:22-27) use the mean rather than the texel albedo —
-    # same expectation, different (usually lower) variance weighting.
-    # Default OFF: measured net-negative on v5e at 720p d=3 (342-tri room:
-    # deferred 270 ms vs wavefront 162 — benchmarks/replay_inframe_micro.py).
-    # The replay's ratio math is ~4 ms (field-major), but its 7 per-vertex
-    # texture taps pay the in-frame gather tier (~24 ms per 1M indices from
-    # an argument-resident atlas) = ~155 ms/frame, more than the whole
-    # wavefront.  Re-default if taps drop below ~8 ms/1M.
-    defer_textures: bool = False
-    # Secondary-vertex shading with per-material MEAN texture colors instead
-    # of per-texel taps (textured scenes, wavefront lean bounce decodes
-    # only; primary hits always tap exactly).  The reference taps textures
-    # at every path vertex (BDPTUtils.hlsli:2-53); on TPU each bounce
-    # decode's combined-atlas tap is a ~22 ms/1M-ray HBM gather (CLAUDE.md)
-    # — the single largest per-trace glue cost on the textured flagship.
-    # Estimator deviation when on: indirect bounces carry mean albedo
-    # (diffuse interreflection loses texel detail); direct lighting, the
-    # G-buffer and emissive stay exact.  Default ON — measured round 4:
-    # textured room 164 -> 113 ms/frame, pink_room 733 -> 681; accumulated
-    # -image PSNR exact-vs-mean 40.0 dB (textured, 64 frames) / 54.3 dB
-    # (pink_room, 32 frames), far above the 35 dB north-star bar.  Set
-    # False for reference-exact per-vertex taps (parity tests do); CPU
-    # pipeline paths ignore the flag (their gather decode has no tap to
-    # skip).  See PARITY.md.
-    bounce_tex_mean: bool = True
-    # Direction-major-sort bounce wavefronts before the cluster-tier closest
-    # trace (ops.raysort dirq keys): BRDF-sampled extension rays have
-    # coherent origins but scattered directions, which defeats the
-    # [8,128]-tile AABB culling of accel.pallas_cluster.  No effect on
-    # dense/jnp tiers (order-insensitive) or on the image (the permutation
-    # is inverted).  Default ON since the permutations ride payload-carrying
-    # sorts: pink_room 1278 -> 1130 ms/frame at 720p d=3 (was net-NEGATIVE,
-    # 1351 -> 1435, when the unsort was two 11-column permutation gathers —
-    # benchmarks/vmem_gather_micro.py, scene_frame_micro.py).
-    sort_bounces: bool = True
-    # Direction-major-sort the batched est-1/est-2 shadow queries too
-    # (est-3's s,t-connection rays are always sorted).  est-1 rays start at
-    # scattered bounce vertices toward random light points; est-2 rays
-    # converge on the camera.  Exact-visit counts say sorting cuts the
-    # cluster shortlist ~5x (consv_gap micro: 125 -> 26.3 visits/cell);
-    # flag so the frame-level win/loss is measurable.
-    sort_shadows: bool = True
     # Trace est-1/est-2 shadow rays REVERSED — from the light point / camera
     # toward the surface vertex instead of the reference's vertex-outward
     # orientation (BDPTMain.rt.hlsl:118-120, 191-196).  Any-hit visibility
     # over an open segment is orientation-symmetric (no backface culling on
     # shadow rays), and the reversed wavefront shares ONE origin per lane
-    # population (the camera; each light), so the direction-major sort turns
-    # it into single-origin cones.  MEASURED NET-NEGATIVE on v5e
-    # (pink_room 779.9 -> 789.7 ms/frame at 720p d=3): the direction-sorted
-    # vertex-outward batches are already as coherent as the cones (origins
-    # lie on visible surfaces, directions converge), the any-hit kernel has
-    # no best_t for the front-to-back order to exploit, and the reversal
-    # pays an lpos reconstruction per lane.  Kept behind this flag as a
-    # recorded negative (equivalence-tested:
-    # tests/test_features.py::test_reverse_shadows_matches_reference_orientation).
+    # population (the camera; each light).  Off by default; equivalence-
+    # tested (tests/test_features.py::
+    # test_reverse_shadows_matches_reference_orientation).
     # Differences vs the reference orientation are pure FP rounding at
     # grazing hits (same open interval (min_t, dist) tested from the other
     # end); est-3 connection rays keep their orientation either way.
     reverse_shadows: bool = False
     # Trace the camera and light subpath extension wavefronts TOGETHER:
     # per bounce depth, the camera-ext and light-ext rays merge into ONE
-    # direction-sorted 2x-wavefront (5 divergent closest traces -> 3),
-    # amortizing the per-trace sort/launch glue AND tightening the
-    # direction-sort cells (same 1024-ray cells over twice the rays =
-    # roughly half the direction spread per cell -> shorter exact cluster
-    # shortlists; the win the round-4 sub-cell experiment was after,
-    # without its sublane-padding tax).  DEVIATION: the reference threads
+    # 2x-wavefront (5 closest traces -> 3).  DEVIATION: the reference threads
     # ONE sequential RNG through camera-then-light subpaths per pixel
     # (BDPTMain.rt.hlsl:73-145); merging the traces requires the light
     # subpath to draw from an INDEPENDENT stream (TEA-seeded with a
@@ -142,25 +58,22 @@ class BDPTConfig:
     # while every estimator expectation is unchanged (statistically
     # identical Monte Carlo; tests/test_features.py pins converged-mean
     # agreement).  Default OFF: bit-comparable sequences are the parity
-    # baseline (PARITY.md); flip on for production throughput on divergent
-    # -heavy scenes (pink_room, measured round 5 in BASELINE.md).
+    # baseline (PARITY.md).  Its speed on the GPU is not measured.
     parallel_subpaths: bool = False
     # Fire ALL estimator visibility queries (est-1 NEE + est-3 connections
-    # + est-2 camera splats) as ONE direction-sorted any-hit batch instead
-    # of three per-family batches.  Output-identical (visibility rays are
-    # independent; same rays, same intervals).  Round 3 measured the merge
-    # WORSE pre-premask (811 vs 781 ms pink_room: mixed populations spread
-    # per-cell origin bounds); this flag retests it under the premasked
-    # round-5 tree — see BASELINE.md for the current number.  Only applies
-    # with reverse_shadows=False (the reversed orientations change per
-    # -family origins).
+    # + est-2 camera splats) as ONE any-hit batch instead of three
+    # per-family batches.  Output-identical (visibility rays are
+    # independent; same rays, same intervals).  Only applies with
+    # reverse_shadows=False (the reversed orientations change per-family
+    # origins).  Its speed on the GPU is not measured.
     merge_shadow_batches: bool = False
     # --- timing-attribution stubs (NEVER for rendering; both break the
     # image).  debug_stub_shadows short-circuits every estimator visibility
     # query to "visible"; debug_stub_extensions skips the subpath extension
     # traces (XLA then dead-code-eliminates them).  Frame differencing with
     # these isolates any-hit cost / extension-trace cost from estimator
-    # math inside ONE jitted frame — standalone micros lie (CLAUDE.md).
+    # math inside ONE jitted frame, where XLA cannot elide work the way it
+    # can in a standalone micro-benchmark.
     debug_stub_shadows: bool = False
     debug_stub_extensions: bool = False
 
@@ -208,7 +121,7 @@ class BMFRConfig:
     # 'qr'     — the reference's Householder QR transliteration
     #            (regressionCP.hlsl:207-466), including its per-column
     #            rank-deficiency skip / add-noise variants;
-    # 'normal' — mathematically identical normal-equations form: one MXU
+    # 'normal' — mathematically identical normal-equations form: one
     #            batched Gram matmul [B,13,13] + a 10-step Cholesky whose
     #            pivot value sqrt(G[c,c] - sum L^2) EQUALS the QR's reduced
     #            column norm (same >0.01 accept rule, same R, same
@@ -217,26 +130,26 @@ class BMFRConfig:
     #            read-modify-writes).  Differences are f32 rounding only
     #            (normal equations square the conditioning, but features
     #            are min/max-normalized to [0,1] first).
-    # 'auto'   — 'normal' on TPU, 'qr' elsewhere (tests, goldens).
-    regression_solver: str = "auto"
+    # Both are exact-parity tested (tests/test_bmfr.py).  Default 'normal':
+    # on an H100 (700 W) its BMFR pass took 1.65 ms against 2.42 ms for
+    # 'qr' in a profiled Cornell 1280x720 frame (PERF.md).
+    regression_solver: str = "normal"
     # history fetch packing for the reprojection taps (pre+postprocess):
     # 'f32'  — exact: [pos3|norm3|noisy4] (40 packed cols, 3 gathers) in
     #          preprocess + [filtered3] (12 cols, 1 gather) in postprocess;
     # 'bf16' — ONE combined 13-value/tap history table packed as bf16x2
-    #          pairs (28 i32 cols -> 2 gathers sharing one index vector).
-    #          TPU gather cost is per index per <=16-col fetch, so this
-    #          halves the reprojection fetch cost.  Deviation: history
+    #          pairs (28 i32 cols -> 2 gathers sharing one index vector),
+    #          half the fetched bytes.  Deviation: history
     #          pos/norm/colors quantized to bf16 (<= 2^-8 relative; the
     #          accept thresholds are 0.1 position / 1.0 normal distances,
     #          and spp <= 256 is bf16-EXACT while both blend-alpha floors
     #          make spp > 10 behaviorally irrelevant).  The reference keeps
     #          f32 history textures (DenoisePass.cpp:26-37).  Sharded mode
     #          packs the 13-col history BEFORE the halo exchange, halving
-    #          ICI bytes as well (passes/bmfr.bmfr_pass).
-    # 'auto' — bf16 on TPU (single-chip AND sharded), f32 elsewhere
-    #          (tests, goldens).  Requires preprocess+postprocess both on
-    #          (the combined fetch shares one index vector); otherwise f32.
-    history_pack: str = "auto"
+    #          its bytes as well (passes/bmfr.bmfr_pass).  Requires
+    #          preprocess+postprocess both on (the combined fetch shares
+    #          one index vector); otherwise f32.
+    history_pack: str = "f32"
     # multi-chip only: rows of prev-frame history exchanged across shard
     # boundaries for the reprojection taps (no reference equivalent — the
     # reference is single-GPU).  Taps reprojecting further than this are

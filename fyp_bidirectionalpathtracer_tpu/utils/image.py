@@ -3,7 +3,12 @@ of Falcor's screenshot capture + ImageMagick compare (RunTestsSet.py:262-289).
 """
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
+
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
 
 def to_u8(img) -> np.ndarray:
@@ -13,16 +18,114 @@ def to_u8(img) -> np.ndarray:
     return (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
 
-def write_png(path: str, img) -> None:
-    from PIL import Image
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    Image.fromarray(to_u8(img)).save(path)
+
+def write_png(path: str, img) -> None:
+    """8-bit RGB PNG of a [H, W, 3|4] float image in [0, 1] (alpha dropped),
+    written with zlib alone: filter type 0 on every row."""
+    u8 = to_u8(img)
+    h, w = u8.shape[:2]
+    raw = b"".join(b"\x00" + u8[y].tobytes() for y in range(h))
+    with open(path, "wb") as fh:
+        fh.write(_PNG_MAGIC)
+        fh.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        fh.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
+        fh.write(_png_chunk(b"IEND", b""))
+
+
+def _unfilter(data: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters (types 0-4) -> [h, w * bpp] uint8."""
+    stride = w * bpp
+    rows = np.frombuffer(data, np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype = rows[y, 0]
+        line = rows[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:
+            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
+        elif ftype == 2:
+            cur = (line + prev) & 0xFF
+        elif ftype in (3, 4):
+            # sequential in x: each byte depends on the decoded byte bpp left
+            cur = np.zeros(stride, np.int32)
+            for x in range(stride):
+                a = cur[x - bpp] if x >= bpp else 0
+                b = prev[x]
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = prev[x - bpp] if x >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[x] = (line[x] + pred) & 0xFF
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def read_png_u8(path: str) -> np.ndarray:
+    """8-bit RGB or RGBA, non-interlaced PNG -> [H, W, 3|4] uint8."""
+    with open(path, "rb") as fh:
+        buf = fh.read()
+    if buf[:8] != _PNG_MAGIC:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, hdr = 8, [], None
+    while pos < len(buf):
+        (n,) = struct.unpack(">I", buf[pos:pos + 4])
+        tag = buf[pos + 4:pos + 8]
+        data = buf[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", data)
+        elif tag == b"IDAT":
+            idat.append(data)
+        elif tag == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = hdr
+    if depth != 8 or ctype not in (2, 6) or interlace:
+        raise ValueError(
+            f"{path}: only 8-bit non-interlaced RGB/RGBA PNGs are supported "
+            f"(bit depth {depth}, color type {ctype}, interlace {interlace})")
+    bpp = 3 if ctype == 2 else 4
+    pix = _unfilter(zlib.decompress(b"".join(idat)), h, w, bpp)
+    return pix.reshape(h, w, bpp)
 
 
 def read_png(path: str) -> np.ndarray:
-    from PIL import Image
+    """PNG -> [H, W, 3] float32 RGB in [0, 1] (alpha dropped)."""
+    return read_png_u8(path)[..., :3].astype(np.float32) / 255.0
 
-    return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+
+def read_image_rgba(path: str) -> np.ndarray:
+    """Any image -> [h, w, 4] float32 rgba as stored: .hdr through the RGBE
+    reader (linear radiance), .png through the decoder above, anything else
+    (JPG, ...) through PIL, which is then required."""
+    lower = path.lower()
+    if lower.endswith(".hdr"):
+        return read_hdr(path)
+    if lower.endswith(".png"):
+        u8 = read_png_u8(path)
+        if u8.shape[-1] == 3:
+            u8 = np.concatenate([u8, np.full_like(u8[..., :1], 255)], -1)
+        return u8.astype(np.float32) / 255.0
+    try:
+        from PIL import Image
+    except ImportError as exc:
+        raise ImportError(
+            f"reading {path!r} needs Pillow (PIL); PNG and .hdr images are "
+            "read without it") from exc
+    return np.asarray(Image.open(path).convert("RGBA"), np.float32) / 255.0
 
 
 def mse(a, b) -> float:
@@ -115,11 +218,10 @@ def write_hdr(path: str, img) -> None:
 
 
 def read_image(path: str) -> np.ndarray:
-    """Any image -> [h, w, 4] float32 rgba: .hdr via the RGBE reader
-    (linear radiance), everything else via PIL as [0,1] sRGB-as-stored
-    (the reference samples its PNG/JPG probes without conversion,
-    lightProbeGBuffer.rt.hlsl:64-75)."""
-    if path.lower().endswith(".hdr"):
-        return read_hdr(path)
-    rgb = read_png(path)
-    return np.concatenate([rgb, np.ones_like(rgb[..., :1])], -1)
+    """Env-map image -> [h, w, 4] float32 rgba with alpha 1: .hdr as linear
+    radiance, everything else as [0,1] sRGB-as-stored (the reference samples
+    its PNG/JPG probes without conversion, lightProbeGBuffer.rt.hlsl:64-75)."""
+    img = read_image_rgba(path)
+    if not path.lower().endswith(".hdr"):
+        img[..., 3] = 1.0
+    return img

@@ -1,8 +1,8 @@
 """Frame-sequence capture (Falcor Utils/Video analogue).
 
 The reference H.264-encodes captures via Media Foundation (VideoEncoder).
-Here frames append to an in-memory list and flush to an animated GIF (PIL,
-always available) or an MP4 via the `ffmpeg` binary when present.
+Here frames append to an in-memory list and flush to an animated GIF (needs
+Pillow) or an MP4 via the `ffmpeg` binary when present.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-// Native BVH builder for the TPU renderer.
+// Native BVH builder for the BDPT renderer.
 //
 // The one irreducibly-native host component of the reference is the DXR
 // acceleration-structure build (RtModel::buildAccelerationStructure,

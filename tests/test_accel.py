@@ -106,35 +106,11 @@ def test_degenerate_empty_scene():
     assert int(b.node_miss[0]) == -1
 
 
-def test_fused_shaded_tracer_matches_fallback(cornell):
-    """The Pallas fused intersect+shade kernel (interpret mode on CPU) must
-    produce the same ShadingData as intersect + prepare_shading_data."""
-    from fyp_bidirectionalpathtracer_tpu.ops.shading import make_shaded_tracer
-
-    o, d = _random_rays(257, [0.1, 0.1, 0.1], [0.9, 0.9, 0.9], seed=3)
-    view = jnp.zeros_like(o)
-    trace_ref = make_shaded_tracer(cornell, force_fused=False)
-    trace_fused = make_shaded_tracer(cornell, force_fused=True)
-    h0, s0 = trace_ref(o, d, 1e-3, view)
-    h1, s1 = trace_fused(o, d, 1e-3, view)
-    np.testing.assert_array_equal(np.asarray(h0.tri), np.asarray(h1.tri))
-    hit = np.asarray(h0.tri) >= 0
-    for name in ("pos_w", "n", "diffuse", "specular", "emissive"):
-        a = np.asarray(getattr(s0, name))[hit]
-        b = np.asarray(getattr(s1, name))[hit]
-        np.testing.assert_allclose(a, b, atol=1e-5, err_msg=name)
-    np.testing.assert_allclose(
-        np.asarray(s0.roughness)[hit], np.asarray(s1.roughness)[hit], atol=1e-5
-    )
-    np.testing.assert_array_equal(
-        np.asarray(s0.material_id)[hit], np.asarray(s1.material_id)[hit]
-    )
-
-
 def test_native_bvh_builder_matches_numpy():
     """The C++ builder (native/bvh_builder.cc) must reproduce the numpy
     builder bit-for-bit: same split logic -> same tri_order -> same cluster
-    performance profile.  Skipped when libbvh_builder.so isn't built."""
+    performance profile.  Skipped when libbvh_builder.so cannot be built
+    (no C++ compiler)."""
     from fyp_bidirectionalpathtracer_tpu.accel import bvh as bvh_mod
     from fyp_bidirectionalpathtracer_tpu.accel import native
 
@@ -146,7 +122,7 @@ def test_native_bvh_builder_matches_numpy():
         if nat is None:
             import pytest
 
-            pytest.skip("native BVH builder not built (make -C native)")
+            pytest.skip("native BVH builder could not be built (make -C native)")
         orig = bvh_mod.build_sah_native
         bvh_mod.build_sah_native = lambda *a, **k: None
         try:

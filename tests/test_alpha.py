@@ -83,11 +83,8 @@ def test_shaded_tracer_alpha(panel):
 
 @pytest.mark.slow
 def test_render_frame_with_alpha_scene(panel):
-    """End-to-end frame on the alpha scene (wavefront path; megakernel must
-    decline it)."""
-    from fyp_bidirectionalpathtracer_tpu.accel.pallas_frame import (
-        supports_megakernel,
-    )
+    """End-to-end frame on the alpha scene (wavefront path with the
+    alpha-test restart loop)."""
     from fyp_bidirectionalpathtracer_tpu.passes.accumulate import AccumState
     from fyp_bidirectionalpathtracer_tpu.passes.bmfr import BMFRState
     from fyp_bidirectionalpathtracer_tpu.pipeline.renderer import (
@@ -98,7 +95,6 @@ def test_render_frame_with_alpha_scene(panel):
     from fyp_bidirectionalpathtracer_tpu.utils.config import RenderConfig
 
     cfg = RenderConfig(width=64, height=48)
-    assert not supports_megakernel(panel, cfg)
     ch, _, _ = render_frame_fn(
         panel, panel.data.camera, AccumState.create(48, 64),
         BMFRState.create(48, 64), jnp.uint32(GBUF_FRAME_INIT),

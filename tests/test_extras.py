@@ -157,7 +157,7 @@ def test_profiled_render_matches_fused():
     keys = set(prof.events)
     assert "frame" in keys
     assert {"frame/accumulate", "frame/bmfr"} <= keys
-    assert ("frame/megakernel" in keys) or ("frame/bdpt" in keys)
+    assert {"frame/gbuffer", "frame/bdpt"} <= keys
     # states advanced identically
     assert r1.state.frame_index == r2.state.frame_index == 1
 

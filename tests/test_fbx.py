@@ -204,8 +204,7 @@ def test_independent_autodesk_fixture():
     """Decode a REAL Autodesk-FBX-SDK-exported binary file (Falcor's
     UnitSphere.fbx — NOT produced by save_fbx): version 7300 with 32-bit
     node records, a path our writer never emits, against geometric ground
-    truth a shared reader/writer misconception cannot fake (VERDICT r2
-    missing #4)."""
+    truth a shared reader/writer misconception cannot fake."""
     from fyp_bidirectionalpathtracer_tpu.models.fbx import load_fbx, parse_fbx
 
     _, version = parse_fbx(REF_FBX)

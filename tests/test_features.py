@@ -87,7 +87,7 @@ def test_parallel_subpaths_statistically_equivalent():
     for par in (False, True):
         cfg = RenderConfig(
             width=SIZE, height=SIZE,
-            bdpt=BDPTConfig(megakernel="off", parallel_subpaths=par),
+            bdpt=BDPTConfig(parallel_subpaths=par),
         )
         r = Renderer(baked, cfg)
         outs[par] = np.asarray(r.render(24))[..., :3]
@@ -115,7 +115,7 @@ def test_merge_shadow_batches_output_identical():
     for merge in (False, True):
         cfg = RenderConfig(
             width=SIZE, height=SIZE,
-            bdpt=BDPTConfig(megakernel="off", merge_shadow_batches=merge),
+            bdpt=BDPTConfig(merge_shadow_batches=merge),
         )
         r = Renderer(baked, cfg)
         outs[merge] = np.asarray(r.render(2))
@@ -332,7 +332,7 @@ def test_reverse_shadows_matches_reference_orientation():
     for rev in (True, False):
         cfg = RenderConfig(
             width=SIZE, height=SIZE,
-            bdpt=BDPTConfig(megakernel="off", reverse_shadows=rev),
+            bdpt=BDPTConfig(reverse_shadows=rev),
         )
         outs[rev] = np.asarray(Renderer(baked, cfg).render(2))
     d = np.abs(outs[True] - outs[False])

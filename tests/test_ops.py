@@ -134,11 +134,22 @@ def test_clamp_vec():
     )
 
 
+def _splat_reference(lin, rgb, alpha, n):
+    """float64 np.add.at over the kept updates (0 <= lin < n)."""
+    lin = np.asarray(lin)
+    keep = (lin >= 0) & (lin < n)
+    out = np.zeros((n, 4), np.float64)
+    vals = np.concatenate([np.asarray(rgb, np.float64),
+                           np.asarray(alpha, np.float64)[:, None]], -1)
+    np.add.at(out, lin[keep], vals[keep])
+    return out
+
+
 def test_splat_modes_agree():
-    from fyp_bidirectionalpathtracer_tpu.ops.splat import (
-        MODES,
-        scatter_add_rgba_direct,
-    )
+    """The one splat reduction (per-channel scatter-add) against a float64
+    reference, with estimator-2-shaped updates: many per pixel, alpha = 1,
+    some dropped past the image."""
+    from fyp_bidirectionalpathtracer_tpu.ops.splat import scatter_add_rgba
 
     rs = np.random.RandomState(0)
     n = 1000
@@ -146,153 +157,33 @@ def test_splat_modes_agree():
     lin = jnp.asarray(rs.randint(0, n + 200, u), jnp.int32)  # some dropped
     rgb = jnp.asarray(np.abs(rs.normal(size=(u, 3))), jnp.float32)
     alpha = jnp.ones((u,), jnp.float32)
-    d = np.asarray(scatter_add_rgba_direct(lin, rgb, alpha, n))
-    for mode, fn in MODES.items():
-        s = np.asarray(fn(lin, rgb, alpha, n))
-        np.testing.assert_allclose(d, s, rtol=1e-3, atol=1e-3,
-                                   err_msg=mode)  # f32 sum order
-    from fyp_bidirectionalpathtracer_tpu.ops.splat import scatter_add_rgba
-
-    p = np.asarray(scatter_add_rgba("packed", lin, rgb, alpha, n,
-                                    alpha_is_count=True))
-    np.testing.assert_allclose(d, p, rtol=1e-3, atol=1e-3)
-    au = np.asarray(scatter_add_rgba("auto", lin, rgb, alpha, n,
-                                     alpha_is_count=True))
-    np.testing.assert_allclose(d, au, rtol=1e-3, atol=1e-3)
+    d = np.asarray(scatter_add_rgba(lin, rgb, alpha, n))
+    np.testing.assert_allclose(d, _splat_reference(lin, rgb, alpha, n),
+                               rtol=1e-5, atol=1e-5)  # f32 sum order
     # dropped updates contributed nothing
     total_kept = float(alpha[np.asarray(lin) < n].sum())
     assert float(d[:, 3].sum()) == total_kept
 
 
-def test_splat_tiled_bf16_tolerance():
-    """tiled_bf16 quantizes each UPDATE to bf16 (~0.4% rel) before the
-    exact f32 per-pixel sum; totals must stay within that envelope and
-    counts/drops must be exact (ops/splat_tile.py pack_bf16)."""
-    from fyp_bidirectionalpathtracer_tpu.ops.splat import (
-        scatter_add_rgba,
-        scatter_add_rgba_direct,
-    )
+@pytest.mark.parametrize("case", ["unique", "duplicate", "dropped", "empty"])
+def test_splat_direct_matches_add_at(case):
+    from fyp_bidirectionalpathtracer_tpu.ops.splat import scatter_add_rgba
 
     rs = np.random.RandomState(1)
-    n = 1000
-    u = 3000
-    lin = jnp.asarray(rs.randint(0, n + 200, u), jnp.int32)
-    rgb = jnp.asarray(np.abs(rs.normal(size=(u, 3))), jnp.float32)
-    alpha = jnp.ones((u,), jnp.float32)
-    d = np.asarray(scatter_add_rgba_direct(lin, rgb, alpha, n))
-    for count in (True, False):
-        t = np.asarray(scatter_add_rgba("tiled_bf16", lin, rgb, alpha, n,
-                                        alpha_is_count=count))
-        np.testing.assert_allclose(d[:, :3], t[:, :3], rtol=6e-3, atol=6e-3)
-        np.testing.assert_array_equal(d[:, 3], t[:, 3])  # alpha=1 is exact bf16
-        # tiled_bf16w: on TPU the bf16 MXU products are exact (0/1 one-hot x
-        # bf16 values) with f32 accumulation; the CPU interpret fallback may
-        # round the partial dot to bf16, so assert the quantization envelope
-        # rather than bit-equality here
-        w = np.asarray(scatter_add_rgba("tiled_bf16w", lin, rgb, alpha, n,
-                                        alpha_is_count=count))
-        np.testing.assert_allclose(d[:, :3], w[:, :3], rtol=2e-2, atol=2e-2)
-        np.testing.assert_array_equal(d[:, 3], w[:, 3])
-    # rgb8e: one packed sort column, error <= 2^-8 of each update's MAX
-    # channel (shared exponent) — assert against a per-pixel envelope of
-    # sum(max_channel) * 2^-8
-    w8 = np.asarray(scatter_add_rgba("tiled_rgb8e", lin, rgb, alpha, n,
-                                     alpha_is_count=True))
-    mx = np.asarray(rgb).max(-1)
-    env = np.zeros(n)
-    kept = np.asarray(lin) < n
-    np.add.at(env, np.asarray(lin)[kept], mx[kept] * (2.0 ** -8))
-    assert np.all(np.abs(d[:, :3] - w8[:, :3]) <= env[:, None] + 1e-6)
-    np.testing.assert_array_equal(d[:, 3], w8[:, 3])
-
-
-def test_splat_tiled_segments_agree():
-    """segments>1 (per-depth batched sorts, ops/splat_tile.py) must equal
-    the single-segment tiled reduction exactly for f32 pack and within the
-    rgb8e envelope for the packed payload, across tile boundaries."""
-    from fyp_bidirectionalpathtracer_tpu.ops.splat import (
-        scatter_add_rgba_direct,
-    )
-    from fyp_bidirectionalpathtracer_tpu.ops.splat_tile import (
-        scatter_add_rgba_tiled,
-    )
-
-    rs = np.random.RandomState(3)
-    n = 3000          # spans 3 tiles of 1024
-    u = 3 * 2000      # 3 segments
-    # non-negative with some >= n dropped (production sentinel semantics:
-    # direct's .at[] would WRAP negative ids Python-style, tiled drops them)
-    lin = jnp.asarray(rs.randint(0, n + 200, u), jnp.int32)
-    rgb = jnp.asarray(np.abs(rs.normal(size=(u, 3))), jnp.float32)
-    alpha = jnp.ones((u,), jnp.float32)
-    d = np.asarray(scatter_add_rgba_direct(lin, rgb, alpha, n))
-    one = np.asarray(scatter_add_rgba_tiled(
-        lin, rgb, alpha, n, alpha_is_count=True, interpret=True, segments=1))
-    seg = np.asarray(scatter_add_rgba_tiled(
-        lin, rgb, alpha, n, alpha_is_count=True, interpret=True, segments=3))
-    np.testing.assert_allclose(d, one, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(one, seg, rtol=1e-5, atol=1e-5)
-    r8 = np.asarray(scatter_add_rgba_tiled(
-        lin, rgb, alpha, n, alpha_is_count=True, interpret=True, segments=3,
-        pack="rgb8e", mxu_bf16=True))
-    np.testing.assert_allclose(d[:, :3], r8[:, :3], rtol=2e-2, atol=2e-2)
-    np.testing.assert_array_equal(d[:, 3], r8[:, 3])
-
-
-def test_compact_live_preserves_source_order():
-    """ops.compact.compact_live: the compacted prefix must be exactly the
-    live (key < n_targets) subsequence in source order — per-chunk stable
-    bitonic partition + row-aligned overlapping writes with sentinel
-    filler at the <=127-element chunk seams."""
-    from fyp_bidirectionalpathtracer_tpu.ops.compact import K, compact_live
-
-    rs = np.random.RandomState(7)
-    n_targets = 2000
-    sent = 2048  # next 1024-multiple
-    for u, frac in ((2 * K, 0.15), (K + 1000, 0.5), (3 * K, 0.0)):
-        live_mask = rs.rand(u) < frac
-        keys = np.where(live_mask, rs.randint(0, n_targets, u), n_targets)
-        pay = rs.randint(-(2 ** 31), 2 ** 31 - 1, u).astype(np.int64)
-        ck, cp, n_pad = compact_live(
-            jnp.asarray(keys, jnp.int32), jnp.asarray(pay, jnp.int32),
-            n_targets, sent, interpret=True)
-        ck, cp = np.asarray(ck), np.asarray(cp)
-        n_pad = int(n_pad)
-        # every live update appears once, in source order, before n_pad
-        got = [(k, p) for k, p in zip(ck[:n_pad], cp[:n_pad])
-               if k < n_targets]
-        want = [(int(k), int(np.int32(p)))
-                for k, p in zip(keys, pay) if k < n_targets]
-        assert got == want, f"u={u} frac={frac}"
-        # everything from n_pad on is sentinel
-        assert np.all(ck[n_pad:] == sent)
-        # padded live count bounded by chunk-seam rounding
-        n_chunks = (u + K - 1) // K
-        assert len(want) <= n_pad <= len(want) + 128 * n_chunks
-
-
-def test_splat_tiled_compact_bit_identical():
-    """The compaction fast path (rgb8e + capacity-gated sort) must be
-    BIT-identical to the uncompacted tiled_rgb8e reduction — same live
-    subsequence through the same stable sort — in both the fits-capacity
-    branch and the overflow fallback branch."""
-    from fyp_bidirectionalpathtracer_tpu.ops.splat_tile import (
-        scatter_add_rgba_tiled,
-    )
-
-    rs = np.random.RandomState(11)
-    n = 2000
-    u = 3 * 8192
-    for live_frac in (0.15, 0.9):  # 0.9 > 1/3 capacity -> fallback branch
-        live = rs.rand(u) < live_frac
-        lin = jnp.asarray(
-            np.where(live, rs.randint(0, n, u), n), jnp.int32)
-        rgb = jnp.asarray(np.abs(rs.normal(size=(u, 3))), jnp.float32)
-        alpha = jnp.ones((u,), jnp.float32)
-        kw = dict(alpha_is_count=True, interpret=True, pack="rgb8e",
-                  mxu_bf16=True)
-        off = np.asarray(scatter_add_rgba_tiled(
-            lin, rgb, alpha, n, compact="off", **kw))
-        on = np.asarray(scatter_add_rgba_tiled(
-            lin, rgb, alpha, n, compact="on", **kw))
-        np.testing.assert_array_equal(off, on, err_msg=f"frac={live_frac}")
+    n = 64
+    if case == "unique":
+        lin = rs.permutation(n)[:40]
+    elif case == "duplicate":
+        lin = rs.randint(0, 4, 500)       # 500 updates onto 4 pixels
+    elif case == "dropped":
+        lin = np.concatenate([rs.randint(0, n, 50), [-1, -7, n, n + 3, 10 ** 6]])
+    else:
+        lin = np.zeros((0,), np.int64)
+    u = len(lin)
+    rgb = rs.uniform(0.0, 2.0, (u, 3)).astype(np.float32)
+    alpha = rs.uniform(0.0, 1.0, u).astype(np.float32)
+    got = np.asarray(scatter_add_rgba(
+        jnp.asarray(lin, jnp.int32), jnp.asarray(rgb), jnp.asarray(alpha), n))
+    assert got.shape == (n, 4) and got.dtype == np.float32
+    np.testing.assert_allclose(got, _splat_reference(lin, rgb, alpha, n),
+                               rtol=1e-5, atol=1e-5)

@@ -4,7 +4,7 @@
 These anchor the pipeline's radiometry to an implementation that shares
 nothing but the published equations: camera model, BVH traversal, shading,
 NEE, clamping, and estimator-1 weighting all have to agree for these to
-pass (SURVEY.md §4 strategy; VERDICT r1 weak #5)."""
+pass (SURVEY.md §4 strategy)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -166,8 +166,7 @@ def test_est3_connections_match_oracle_statistically(baked):
     Lambertian evalFs quirk (albedo, no 1/pi), endpoint colors aE/aL, the
     uniform 1/totalLength weight, connection visibility, clamping, and
     saturate accumulation (BDPTUtils.hlsli:186-224, BDPTMain.rt.hlsl:212-233).
-    The megakernel<->wavefront cross-parity tests cover routing; this
-    anchors the actual radiometry (VERDICT r2 weak #7)."""
+    This anchors the actual radiometry."""
     cfg = RenderConfig(
         width=SIZE, height=SIZE,
         bdpt=BDPTConfig(

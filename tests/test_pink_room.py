@@ -2,7 +2,7 @@
 
 The reference's pink_room.fbx is packman-fetched and absent from its repo;
 models.pink_room authors the room and maps the reference's 27 shipped
-textures through the atlas (VERDICT r1 missing #1)."""
+textures through the atlas."""
 import os
 
 import numpy as np
